@@ -1,0 +1,372 @@
+"""Total potential-energy / force evaluation (counterpart of
+``openmm_velocityverlet_tpu/forces.py``).
+
+Composes the terms of the middle-scheme main path: the plist direct-space
+sweep (kernel B1 on CUDA, its plain torch version on CPU) plus the residual
+exclusion adjustment; the exact-k Ewald reciprocal and the Tang-Toennies
+damping, with forces by ``torch.autograd.grad``; the bonded, Drude, Thole
+and 1-4 exception terms with analytic forces (``mol_terms`` and
+``term_forces``); the Ewald self and LJ long-range corrections; and
+virtual-site force redistribution.
+
+Not ported yet, and refused with NotImplementedError: the banded and
+strict pair sweeps (kernel B2), kernel-folded 1-4 exceptions, the mesh,
+PME and the fused reciprocal, NBTHOLE, CMAP, GB and external forces.
+"""
+from __future__ import annotations
+
+from typing import Callable, Sequence
+
+import numpy as np
+import torch
+
+from .ops import (allpairs, ewald, mol_terms, nonbonded, pair_plist,
+                  term_forces, vsites)
+from .system import System
+
+
+def _drop_constraint_null_terms(system):
+    """System copy with constraint-null spring terms removed, or None if
+    there are none.
+
+    A bond/Urey-Bradley spring on a constrained pair, or an angle spring
+    whose three internal distances are all constrained (rigid water), acts
+    only along directions the constraint solver projects away: SHAKE holds
+    the coordinate fixed and RATTLE removes the along-constraint velocity
+    component after every kick, so dropping the term from the FORCE path is
+    exactly equivalent dynamics.  These terms exist because the reference
+    defaults to flexibleConstraints=True (oplspsffile.py:1000-1008), which
+    is about reported energies, not dynamics — energy queries keep them."""
+    cons = np.asarray(system.constraints)
+    if cons.shape[0] == 0:
+        return None
+    cset = {(int(min(i, j)), int(max(i, j))) for i, j in cons.tolist()}
+
+    def pair_null(tbl):
+        t = np.asarray(tbl).reshape(-1, 2)
+        return np.array([(min(i, j), max(i, j)) in cset
+                         for i, j in t.tolist()], bool)
+
+    null_b = pair_null(system.bonds) if system.bonds.shape[0] else \
+        np.zeros(0, bool)
+    null_u = pair_null(system.ub_bonds) if system.ub_bonds.shape[0] else \
+        np.zeros(0, bool)
+    ang = np.asarray(system.angles).reshape(-1, 3)
+    null_a = np.array(
+        [((min(i, j), max(i, j)) in cset and (min(j, k), max(j, k)) in cset
+          and (min(i, k), max(i, k)) in cset) for i, j, k in ang.tolist()],
+        bool) if ang.shape[0] else np.zeros(0, bool)
+    if not (null_b.any() or null_u.any() or null_a.any()):
+        return None
+    kb, ku, ka = ~null_b, ~null_u, ~null_a
+    return system.replace(
+        bonds=np.asarray(system.bonds).reshape(-1, 2)[kb],
+        bond_r0=np.asarray(system.bond_r0)[kb],
+        bond_k=np.asarray(system.bond_k)[kb],
+        ub_bonds=np.asarray(system.ub_bonds).reshape(-1, 2)[ku],
+        ub_r0=np.asarray(system.ub_r0)[ku],
+        ub_k=np.asarray(system.ub_k)[ku],
+        angles=ang[ka],
+        angle_theta0=np.asarray(system.angle_theta0)[ka],
+        angle_k=np.asarray(system.angle_k)[ka])
+
+
+class ForceEvaluator:
+    """``energy_forces(pos, box) -> (terms, forces)`` for one System on one
+    device.  Static tables are uploaded once, at construction."""
+
+    def __init__(self, system: System,
+                 external_forces: Sequence[Callable] = (),
+                 ewald_chunk: int = 16384, row_block: int = 1024,
+                 pair_kernel: str = "auto", box_hint=None, pos_hint=None,
+                 pair_ts: int = 0, fold_exc14: bool = False,
+                 recip: str = "exact", mesh=None,
+                 strict_pairs: bool = False, device="cpu"):
+        if external_forces:
+            raise NotImplementedError(
+                "external forces are not ported yet (ROADMAP A11)")
+        if mesh is not None:
+            raise NotImplementedError(
+                "the multi-device mesh is not ported yet (ROADMAP A16)")
+        if fold_exc14:
+            raise NotImplementedError(
+                "kernel-folded 1-4 exceptions need the z-band sweep, "
+                "kernel B2 (ROADMAP B2)")
+        if strict_pairs:
+            raise NotImplementedError(
+                "strict pair coverage needs the exact fallback sweep, "
+                "kernel B2 (ROADMAP B2)")
+        if recip != "exact":
+            raise NotImplementedError(
+                f"recip={recip!r}: only the exact-k reciprocal is ported "
+                "(PME and the fused kernels B4/B5: ROADMAP A13)")
+        if int(np.asarray(system.nbt_idx).max(initial=0)) > 0:
+            raise NotImplementedError("NBTHOLE is not ported yet "
+                                      "(ROADMAP A13)")
+        if system.cmap_atoms.shape[0] > 0:
+            raise NotImplementedError("CMAP is not ported yet (ROADMAP A13)")
+        if system.gb is not None:
+            raise NotImplementedError(
+                "implicit solvent (GB) is not ported yet (ROADMAP A13)")
+        if pair_kernel == "auto":
+            pair_kernel = "plist"
+        if pair_kernel not in ("plist", "dense"):
+            raise NotImplementedError(
+                f"pair_kernel={pair_kernel!r}: the port has 'plist' "
+                "(kernel B1) and 'dense'; the banded sweep is kernel B2 "
+                "(ROADMAP B2)")
+        self.system = system
+        self.device = torch.device(device)
+        self.ewald_chunk = ewald_chunk
+        self.row_block = row_block
+        self.pair_kernel = pair_kernel
+        self.recip_method = recip
+        self.skin = 0.1
+        dev = self.device
+        self.t = system.to(dev)
+        # force-inert particles (massless, not a virtual site): their
+        # forces are discarded, so inert-inert tile pairs leave the force
+        # path's pair list
+        inert = np.asarray(system.inv_masses) == 0
+        vidx = np.asarray(system.vsite_index).reshape(-1)
+        if vidx.size:
+            inert[vidx] = False
+        self._inert_mask = inert if inert.any() else None
+
+        # jointly pick sort key and tile size minimising (pair slots +
+        # per-entry overhead) from the exact candidate enumeration of the
+        # initial configuration
+        self.plist_sort = "morton"
+        rc_cand = system.r_cutoff + self.skin
+        have_hint = pos_hint is not None and box_hint is not None
+        if pair_ts:
+            self.pair_ts = int(pair_ts)
+            if have_hint:
+                cnts = {key: pair_plist.count_candidates_np(
+                            pos_hint, box_hint, self.pair_ts, rc_cand,
+                            mode=key, inert=self._inert_mask)
+                        for key in ("z", "morton")}
+                self.plist_sort = min(cnts, key=cnts.get)
+        else:
+            best = (0, 256, "morton")
+            if have_hint:
+                best = None
+                for key in ("z", "morton"):
+                    for cand in (128, 256, 384):
+                        cnt = pair_plist.count_candidates_np(
+                            pos_hint, box_hint, cand, rc_cand, mode=key,
+                            inert=self._inert_mask)
+                        cost = cnt * (cand * cand + 6000)
+                        if best is None or cost < best[0]:
+                            best = (cost, cand, key)
+            self.pair_ts = best[1]
+            self.plist_sort = best[2]
+        # pair-list capacity: exact initial count x drift margin
+        n_tiles = -(-system.n_atoms // self.pair_ts)
+        full = n_tiles * (n_tiles + 1) // 2
+        self.plist_cap = full
+        if have_hint:
+            cnt = pair_plist.count_candidates_np(
+                pos_hint, box_hint, self.pair_ts, rc_cand,
+                mode=self.plist_sort, inert=self._inert_mask)
+            self.plist_cap = min(full, int(cnt * 1.6) + 64)
+        # first-atom-frame ("nowrap") axes of the plist kernel, re-verified
+        # per step by the coverage check
+        self.plist_nowrap = (False, False, False)
+        if have_hint:
+            self.plist_nowrap = pair_plist.nowrap_axes_np(
+                pos_hint, box_hint, self.pair_ts, rc_cand,
+                mode=self.plist_sort)
+        self.pair_tables = allpairs.build_pair_tables(
+            system.n_atoms, system.lj_type, system.acoef, system.bcoef,
+            system.exclusions, system.lj_group, system.lj_group_allowed,
+            exc_idx=system.exc_idx, exc_qq=system.exc_qq,
+            exc_c6=system.exc_c6, exc_c12=system.exc_c12,
+            charges=system.charges, fold_exc14=False)
+        if self.pair_tables["residual"].shape[0]:
+            self.pair_tables["residual_dev"] = allpairs.residual_tensors(
+                self.pair_tables, dev)
+        self.statics = (pair_plist.padded_statics(
+            system.charges, self.pair_tables, self.pair_ts, dev)
+            if pair_kernel == "plist" else None)
+
+        def build_term_eval(sysm):
+            exc_mask = self.pair_tables["exc_term_mask"]
+            mt, leftover = mol_terms.build_mol_tables(sysm, exc_mask=exc_mask)
+            if len(mt) > 32:
+                mt = []
+                leftover = None
+            if leftover is not None and "exception" in leftover:
+                exc_mask = leftover.pop("exception")
+            terms, inc, _ = term_forces.build_term_tables(
+                sysm, exc_keep_mask=exc_mask, keep_masks=leftover)
+            return (mol_terms.types_to(mt, dev),
+                    term_forces.tables_to(terms, inc, dev))
+
+        self.mol_types, self.term_tables = build_term_eval(system)
+        # force path without constraint-null springs (see
+        # _drop_constraint_null_terms); energy queries keep the full tables
+        fsys = _drop_constraint_null_terms(system)
+        self.mol_types_force, self.term_tables_force = (
+            (self.mol_types, self.term_tables) if fsys is None
+            else build_term_eval(fsys))
+
+    @property
+    def uses_plist(self) -> bool:
+        return self.pair_kernel == "plist"
+
+    # -- virtual sites ----------------------------------------------------
+    def place_vsites(self, pos):
+        t = self.t
+        return vsites.compute_vsites(pos, t.vsite_index, t.vsite_parents,
+                                     t.vsite_origin_w, t.vsite_x_w,
+                                     t.vsite_y_w, t.vsite_local)
+
+    # -- spatial-sort cache -------------------------------------------------
+    def make_pair_cache(self, pos_raw, box):
+        """The sorted layout and pair list of the force path (rebuilt every
+        sort_refresh steps and after a coverage trip)."""
+        return pair_plist.make_pair_cache(
+            self.place_vsites(pos_raw), box, self.system.charges,
+            self.pair_tables, self.pair_ts, mode=self.plist_sort,
+            cap=self.plist_cap, rc_cand=self.system.r_cutoff + self.skin,
+            inert=self._inert_mask, nowrap=self.plist_nowrap,
+            statics=self.statics)
+
+    def refit_pair_list(self, pos_raw, box) -> str:
+        """Re-size the pair list from the current configuration after a
+        rebuild came back flagged: re-choose the nowrap axes (their frame
+        budget no longer holds once a lattice start has melted) and grow
+        the capacity if the candidates outgrew it.  The JAX package keeps
+        both fixed from construction and runs the flagged list anyway
+        (ROADMAP C).  Returns a note of what changed."""
+        pos = np.asarray(self.place_vsites(pos_raw).detach().cpu(),
+                         np.float64)
+        box = np.asarray(box.detach().cpu(), np.float64)
+        rc_cand = self.system.r_cutoff + self.skin
+        old = (self.plist_nowrap, self.plist_cap)
+        self.plist_nowrap = pair_plist.nowrap_axes_np(
+            pos, box, self.pair_ts, rc_cand, mode=self.plist_sort)
+        n_tiles = -(-self.system.n_atoms // self.pair_ts)
+        cnt = pair_plist.count_candidates_np(
+            pos, box, self.pair_ts, rc_cand, mode=self.plist_sort,
+            inert=self._inert_mask)
+        if cnt > self.plist_cap:
+            self.plist_cap = min(n_tiles * (n_tiles + 1) // 2,
+                                 int(cnt * 1.6) + 64)
+        return (f"nowrap {old[0]} -> {self.plist_nowrap}, plist_cap "
+                f"{old[1]} -> {self.plist_cap}")
+
+    # -- gradient terms ----------------------------------------------------
+    def _smooth_energy(self, pos, box):
+        """The terms whose force comes from autograd: the Ewald reciprocal
+        and the TT damping."""
+        s, t = self.system, self.t
+        terms = {}
+        if s.ewald_beta > 0:
+            terms["coul_recip"] = ewald.reciprocal_energy(
+                pos, box, t.charges, s.ewald_beta, s.kmax,
+                chunk=self.ewald_chunk)
+        if s.tt_donors.shape[0] > 0:
+            terms["tt_damping"] = nonbonded.tt_damping_energy(
+                pos, box, t.tt_donors, t.tt_charges, t.tt_dipole_mask,
+                t.exclusions, float(s.tt_b), float(s.tt_cutoff))
+        return terms
+
+    # -- full evaluation --------------------------------------------------
+    @torch.no_grad()
+    def energy_forces(self, pos_raw, box, want_energy: bool = True,
+                      pair_cache=None, return_cov: bool = False):
+        """Returns (terms dict, forces on real dofs), plus the pair-list
+        coverage flag (a device bool) when ``return_cov``.  With
+        ``want_energy=False`` the pair kernel takes its force-only
+        specialization and the constraint-null springs are skipped."""
+        s, t = self.system, self.t
+        pos = self.place_vsites(pos_raw)
+        cov = torch.zeros((), dtype=torch.bool, device=pos.device)
+        if self.pair_kernel == "plist":
+            e_lj, e_coul_dir, e_corr, e14c, e14l, f_direct, cov = \
+                pair_plist.direct_space_plist(
+                    pos, box, t.charges, self.pair_tables, s.ewald_beta,
+                    s.r_cutoff, self.pair_ts, want_energy=want_energy,
+                    cache=pair_cache, plist_cap=self.plist_cap,
+                    skin=self.skin, plist_sort=self.plist_sort,
+                    r_switch=s.r_switch, nowrap=self.plist_nowrap,
+                    statics=self.statics)
+        else:
+            e_lj, e_coul_dir, e_corr, e14c, e14l, f_direct = \
+                allpairs.direct_space_dense(
+                    pos, box, t.charges, self.pair_tables, s.ewald_beta,
+                    s.r_cutoff, row_block=self.row_block,
+                    r_switch=s.r_switch)
+
+        with torch.enable_grad():
+            p = pos.detach().requires_grad_(True)
+            terms = self._smooth_energy(p, box)
+            if terms:
+                e_smooth = sum(terms.values())
+                (grad_smooth,) = torch.autograd.grad(e_smooth, p)
+            else:
+                grad_smooth = torch.zeros_like(pos)
+        terms = {k: v.detach() for k, v in terms.items()}
+        t_terms, t_inc = (self.term_tables if want_energy
+                          else self.term_tables_force)
+        mol_types = self.mol_types if want_energy else self.mol_types_force
+        term_energies, f_terms = term_forces.energies_and_forces(
+            pos, box, t_terms, t_inc)
+        if mol_types:
+            mol_energies, f_mol = mol_terms.energies_and_forces(
+                pos, box, mol_types, s.n_atoms)
+            f_terms = f_terms + f_mol
+            for k, v in mol_energies.items():
+                term_energies[k] = term_energies.get(k, 0.0) + v
+        zero = torch.zeros((), dtype=pos.dtype, device=pos.device)
+        for name in ("bond", "angle", "urey_bradley", "dihedral", "improper",
+                     "drude", "thole", "exception_coul", "exception_lj"):
+            terms[name] = term_energies.get(name, zero)
+        terms["exception_coul"] = terms["exception_coul"] + e14c
+        terms["exception_lj"] = terms["exception_lj"] + e14l
+        terms["lj"] = e_lj
+        terms["coul_direct"] = e_coul_dir
+        terms["coul_excl_corr"] = e_corr
+        if s.ewald_beta > 0:
+            terms["coul_self"] = nonbonded.ewald_self_energy(
+                t.charges, s.ewald_beta, box)
+        if s.use_dispersion_correction:
+            terms["lj_lrc"] = nonbonded.dispersion_correction(
+                box, s.disp_coef_a2, s.disp_coef_b, s.r_cutoff,
+                r_switch=s.r_switch)
+        forces = f_direct + f_terms - grad_smooth
+        forces = vsites.redistribute_forces(
+            pos_raw, forces, t.vsite_index, t.vsite_parents,
+            t.vsite_origin_w, t.vsite_x_w, t.vsite_y_w, t.vsite_local)
+        if return_cov:
+            return terms, forces, cov
+        return terms, forces
+
+    def potential_energy(self, pos_raw, box):
+        terms, _ = self.energy_forces(pos_raw, box)
+        return sum(terms.values()), terms
+
+    # Force-group decomposition mirroring oplspsffile.py:169-177 + force.py
+    GROUP_MAP = {
+        1: ("bond",),
+        2: ("angle", "urey_bradley"),
+        3: ("dihedral",),
+        4: ("improper",),
+        5: ("lj", "coul_direct", "coul_recip", "coul_self", "coul_excl_corr",
+            "exception_coul", "exception_lj", "lj_lrc", "nbthole"),
+        7: ("drude", "thole"),
+        9: ("tt_damping",),
+    }
+
+    def group_energies(self, terms):
+        out = {}
+        for g, keys in self.GROUP_MAP.items():
+            vals = [terms[k] for k in keys if k in terms]
+            if vals:
+                out[g] = sum(vals)
+        ext = [v for k, v in terms.items() if k.startswith("external_")]
+        if ext:
+            out[0] = sum(ext)
+        return out

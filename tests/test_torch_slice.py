@@ -1,0 +1,194 @@
+"""The slice as a whole against the JAX package: the full ForceEvaluator
+(terms dict + forces) and a 10-step middle-scheme TGNH trajectory of the
+Context, from the same numpy positions and velocities."""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import openmm_velocityverlet_tpu as jpkg
+import openmm_velocityverlet_tpu_torch as tpkg
+from openmm_velocityverlet_tpu.forces import ForceEvaluator as JFE
+from openmm_velocityverlet_tpu.ops import pallas_pair as jpp
+from openmm_velocityverlet_tpu_torch.forces import ForceEvaluator as TFE
+from openmm_velocityverlet_tpu_torch.models.drude_water import drude_water_box
+from openmm_velocityverlet_tpu_torch.system import system_from_numpy
+from tests.test_smoke import make_lj_fluid
+
+# the JAX package's pair-sweep tolerances (tests/test_pallas.py:179-182)
+E_RTOL, E_ATOL = 5e-5, 0.05
+F_RTOL, F_ATOL = 1e-3, 5e-2
+
+
+@pytest.fixture
+def jax_pallas_interpret(monkeypatch):
+    """The JAX ForceEvaluator does not forward ``pallas_interpret`` to
+    ``direct_space_pallas`` on its single-device path (forces.py:465), so
+    on the CPU its Pallas plist kernel refuses to lower; run it in
+    interpret mode, as tests/test_pallas.py does, without editing the JAX
+    package."""
+    monkeypatch.setattr(jpp, "direct_space_pallas", functools.partial(
+        jpp.direct_space_pallas, interpret=True))
+
+
+def _drude_positions(pos, seed=1):
+    """Thermal-like jitter, with every Drude particle 0.012 nm from its
+    core: the excluded-pair correction -qq erf(beta r)/r cancels
+    catastrophically in float32 as r -> 0 in the energy form (the A&S erfc
+    path), so near-coincident pairs would compare rounding noise."""
+    rng = np.random.default_rng(seed)
+    p = pos + rng.normal(0, 0.01, pos.shape)
+    d = rng.normal(size=(pos.shape[0] // 4, 3))
+    d *= 0.012 / np.linalg.norm(d, axis=1, keepdims=True)
+    p[1::4] = p[0::4] + d
+    return p.astype(np.float32)
+
+
+class _FarExclusions(jpkg.SystemBuilder):
+    """Adds exclusions 120 atoms apart: beyond the 31-offset bit window,
+    so they take the residual adjustment path."""
+
+    def finalize(self, box, **kw):
+        for i in (0, 9, 22, 131):
+            self.add_exclusion(i, i + 120)
+        return super().finalize(box, **kw)
+
+
+def _systems(kind):
+    if kind in ("drude", "residual"):
+        js, pos, box = drude_water_box(
+            64, None, jpkg.SystemBuilder if kind == "drude"
+            else _FarExclusions)
+        return js, system_from_numpy(js), _drude_positions(pos), box
+    js, pos, box = make_lj_fluid(n_side=5, spacing=0.42, charge=0.4,
+                                 use_pme=True)
+    q = np.where(np.arange(js.n_atoms) % 2 == 0, 0.4, -0.4)
+    js = js.replace(charges=q.astype(np.float32))
+    rng = np.random.default_rng(2)
+    pos = (pos + rng.normal(0, 0.02, pos.shape)).astype(np.float32)
+    return js, system_from_numpy(js), pos, box
+
+
+@pytest.mark.parametrize("kind", ["drude", "lj_fluid", "residual"])
+def test_force_evaluator_matches_jax(kind, jax_pallas_interpret):
+    js, ps, pos, box = _systems(kind)
+    assert (js.exclusions.shape[1] > 3) == (kind == "residual")
+    jf = JFE(js, pair_kernel="pallas", pallas_interpret=True, box_hint=box,
+             pos_hint=pos, recip="exact")
+    tf = TFE(ps, pair_kernel="plist", box_hint=box, pos_hint=pos)
+    assert (tf.pair_ts, tf.plist_sort, tf.plist_cap, tf.plist_nowrap) == (
+        jf.pair_ts, jf.plist_sort, jf.plist_cap, jf.plist_nowrap)
+    bj = jnp.asarray(box, jnp.float32)
+    bt = torch.as_tensor(box, dtype=torch.float32)
+    # the energy form's excluded-pair correction -qq erf(beta r)/r
+    # cancels in float32 for a Drude pair 0.012 nm apart (~0.3 kJ/mol/nm
+    # of rounding noise on both sides), so its force is compared away from
+    # Drude pairs -- as tests/test_pallas.py:310-322 masks atoms in the
+    # cutoff shell; the force-only form (the step's) is compared on all
+    steady = np.ones(ps.n_atoms, bool)
+    steady[np.asarray(ps.drude_pairs).reshape(-1)] = False
+    for want_energy in (True, False):
+        tj, fj = jax.jit(functools.partial(
+            jf.energy_forces, want_energy=want_energy))(jnp.asarray(pos), bj)
+        tt, ft = tf.energy_forces(torch.as_tensor(pos), bt,
+                                  want_energy=want_energy)
+        sel = steady if want_energy else slice(None)
+        np.testing.assert_allclose(ft.numpy()[sel], np.asarray(fj)[sel],
+                                   rtol=F_RTOL, atol=F_ATOL)
+        if want_energy:
+            assert set(tt) == set(tj)
+            for k in tj:
+                np.testing.assert_allclose(float(tt[k]), float(tj[k]),
+                                           rtol=E_RTOL, atol=E_ATOL,
+                                           err_msg=k)
+            assert tf.group_energies(tt).keys() == jf.group_energies(tj).keys()
+
+
+def _run(pkg, js, pos, box, vel, steps, jax_plist):
+    integ = pkg.VVIntegrator(333.0, 10.0, 1.0, 40.0, 0.001)
+    integ.setMaxDrudeDistance(0.02)
+    if pkg is jpkg:
+        ctx = jpkg.Context(js, integ, positions=pos, box=box, recip="exact")
+        if jax_plist:
+            # the TPU path: the Pallas plist kernel (interpret mode here)
+            ctx.evaluator = JFE(js, pair_kernel="pallas",
+                                pallas_interpret=True, box_hint=box,
+                                pos_hint=pos, recip="exact")
+    else:
+        ctx = tpkg.Context(system_from_numpy(js), integ, positions=pos,
+                           box=box, pair_kernel="plist" if jax_plist
+                           else "dense")
+    ctx.set_velocities(vel)
+    traj = []
+    for _ in range(steps):
+        ctx.step(1)
+        traj.append(np.asarray(ctx.get_positions(), np.float64))
+    return np.stack(traj), ctx.potential_energy_terms(), ctx.kinetic_energy()
+
+
+@pytest.mark.parametrize("path,pos_bound", [("plist", 2e-5),
+                                            ("dense", 2e-4)])
+def test_context_trajectory_tracks_jax(path, pos_bound,
+                                      jax_pallas_interpret):
+    """10 middle-scheme TGNH steps (Drude pairs, constraints, hard wall,
+    exact-k Ewald).  ``plist``: the port's plist path against the JAX
+    Context on its Pallas plist kernel (interpret mode) -- the TPU main
+    path.  ``dense``: both on the dense sweep, whose energy-form excluded
+    pair correction carries float32 cancellation noise for Drude pairs near
+    their core, hence the looser bound.  Reported drift: max |dpos| per
+    step; per-term |dE| after the run."""
+    js, pos, box = drude_water_box(27, None, jpkg.SystemBuilder)
+    pos = _drude_positions(pos, seed=3)
+    rng = np.random.default_rng(5)
+    vel = (rng.normal(0, 1, pos.shape) * np.sqrt(
+        0.0083144626 * 333.0 * np.asarray(js.inv_masses))[:, None]
+        ).astype(np.float32)
+    tj, ej, kj = _run(jpkg, js, pos, box, vel, 10, path == "plist")
+    tt, et, kt = _run(tpkg, js, pos, box, vel, 10, path == "plist")
+    drift = np.abs(tt - tj).max(axis=(1, 2))
+    print(f"\n[{path}] max |dpos| per step (nm): "
+          + " ".join(f"{d:.2e}" for d in drift))
+    print(f"[{path}] per-term |dE| (kJ/mol): "
+          + ", ".join(f"{k} {abs(et[k] - ej[k]):.2e}" for k in ej)
+          + f"; kinetic {abs(kt - kj):.2e}")
+    assert drift.max() < pos_bound
+    for k in ej:
+        np.testing.assert_allclose(et[k], ej[k], rtol=1e-3, atol=0.5,
+                                   err_msg=k)
+    np.testing.assert_allclose(kt, kj, rtol=1e-3)
+
+
+@pytest.mark.parametrize("bad", ["nowrap", "capacity"])
+def test_flagged_rebuild_is_refit(bad):
+    """A rebuild that comes back flagged (a nowrap frame that no longer
+    fits, or a list over capacity) is refitted from the current
+    configuration before the list runs, so the step's forces are those of a
+    correctly sized list.  (The JAX package runs the flagged list; ROADMAP
+    C.)"""
+    js, pos, box = drude_water_box(216, None, jpkg.SystemBuilder)
+    ps = system_from_numpy(js)
+    integ = tpkg.VVIntegrator(333.0, 10.0, 1.0, 40.0, 0.001)
+    ctx = tpkg.Context(ps, integ, positions=_drude_positions(pos), box=box)
+    ev = ctx.evaluator
+    if bad == "nowrap":
+        ev.plist_nowrap = (True, True, True)
+    else:
+        ev.plist_cap = 3
+    cache = ctx._fresh_cache()
+    assert ctx.refits == 1 and not bool(cache.overflow)
+    if bad == "nowrap":
+        assert ev.plist_nowrap != (True, True, True)
+    else:
+        assert ev.plist_cap > 3
+    st = ctx.state
+    _, f_list = ev.energy_forces(st.pos, st.box, want_energy=False,
+                                 pair_cache=cache)
+    # against a list sized from these positions at construction
+    fresh = TFE(ps, pair_kernel="plist", box_hint=box,
+                pos_hint=st.pos.numpy())
+    _, f_ref = fresh.energy_forces(st.pos, st.box, want_energy=False)
+    np.testing.assert_allclose(f_list.numpy(), f_ref.numpy(),
+                               rtol=F_RTOL, atol=F_ATOL)
