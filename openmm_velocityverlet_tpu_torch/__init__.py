@@ -2,10 +2,12 @@
 ``openmm_velocityverlet_tpu``.
 
 Module names and layout follow the JAX package, which stays the reference.
-This slice carries the middle-scheme TGNH main path; the plist pair sweep
-runs as kernel B1, hand-written CUDA for Hopper (``csrc/plist_pair.cu``),
-with a plain torch version for CPU tensors.  The package imports torch and
-numpy, never jax.
+The port carries the middle-scheme TGNH step; its hand-written CUDA kernels
+for Hopper are B1, the plist pair sweep (``csrc/plist_pair.cu``), B2, the
+upper-triangle band / full sweep (``csrc/tri_pair.cu``), and B4/B5, the
+fused exact-k reciprocal (``csrc/ewald_fused.cu``), each with a plain torch
+version for CPU tensors.  Entry points run on the card unless given
+``device="cpu"``.  The package imports torch and numpy, never jax.
 """
 from .context import Context
 from .forces import ForceEvaluator

@@ -2,14 +2,17 @@
 dynamic state (counterpart of ``openmm_velocityverlet_tpu/context.py``).
 
 ``step(n)`` runs the middle scheme (VVIntegrator::stepMiddle,
-VVIntegrator.cpp:232-338) eagerly on ``device``: CM-motion removal, forces
-with the cached pair list, full kick, RATTLE, the TGNH thermostat, drift on
-compensated two-float positions, SHAKE with its velocity correction and the
-Drude hard wall.  The steps run in segments: the pair cache is rebuilt at
-the entry of each ``step()``, every ``sort_refresh`` steps, and right after
-a step whose coverage flag tripped.  Reading that flag is the one host
-synchronisation of a step, and checking a fresh cache's overflow flag the
-one of a rebuild (both counted in ``host_syncs``).  Unlike the JAX
+VVIntegrator.cpp:232-338) eagerly on ``device`` (the card unless the
+caller passes ``device="cpu"``): CM-motion removal, forces with the cached
+pair sort (plist list or z band), full kick, RATTLE, the TGNH thermostat,
+drift on compensated two-float positions, SHAKE with its velocity
+correction and the Drude hard wall.  The steps run in segments: the pair
+cache is rebuilt at the entry of each ``step()``, every ``sort_refresh``
+steps, and right after a step whose coverage flag tripped.  Reading that
+flag is the one host synchronisation of a step (with ``strict_pairs`` the
+evaluator reads it before the sweep, since the step's forces depend on
+it), and checking a fresh plist cache's overflow flag the one of a rebuild
+(both counted in ``host_syncs``).  Unlike the JAX
 package, a flagged rebuild (list overflow, or a nowrap frame that no longer
 fits) is refitted from the current configuration before it runs, instead of
 running the flagged list (ROADMAP C).
@@ -31,7 +34,7 @@ from .forces import ForceEvaluator
 from .integrators import stepping
 from .integrators.vv import IntegratorData, VVIntegrator
 from .ops import constraints as cons_mod
-from .system import State, System, make_state
+from .system import State, System, make_state, resolve_device
 from .units import BOLTZ
 
 
@@ -68,10 +71,10 @@ class Context:
                  pair_ts: int = 0, fold_exc14: bool = False,
                  recip: str = "exact", mesh=None,
                  strict_pairs: bool = False, pair_kernel: str = "auto",
-                 device="cpu"):
+                 device="cuda"):
         if box is None:
             raise ValueError("box is required")
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         if self.device.type == "cuda":
             # the reciprocal contraction must stay in full float32
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -182,11 +185,14 @@ class Context:
 
     # ------------------------------------------------------------ stepping
     def _fresh_cache(self):
-        """A pair cache for the current positions that is not flagged:
-        a rebuild whose list overflowed or whose nowrap frame budget failed
-        refits the list from the current configuration and rebuilds (one
-        host read per rebuild)."""
+        """A pair cache for the current positions.  A z-band cache has no
+        list to flag; a plist rebuild whose list overflowed or whose nowrap
+        frame budget failed refits the list from the current configuration
+        and rebuilds (one host read per plist rebuild)."""
         ev, st = self.evaluator, self.state
+        if ev.pair_mode == "band":
+            self.rebuilds += 1
+            return ev.make_pair_cache(st.pos, st.box)
         for _ in range(3):
             cache = ev.make_pair_cache(st.pos, st.box)
             self.rebuilds += 1
@@ -207,12 +213,14 @@ class Context:
         n = int(n)
         done = 0
         while done < n:
-            cache = self._fresh_cache() if ev.uses_plist else None
+            cache = self._fresh_cache() if ev.uses_band else None
             lim = min(done + self.sort_refresh, n)
             while done < lim:
                 cov = self._step_middle(cache)
                 done += 1
-                if ev.uses_plist:
+                if ev.uses_band:
+                    # with strict_pairs the evaluator has read the flag
+                    # already, before the kick, and cov is a Python bool
                     self.host_syncs += 1
                     if bool(cov):
                         self.coverage_rebuilds += 1

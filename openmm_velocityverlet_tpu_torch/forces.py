@@ -1,17 +1,24 @@
 """Total potential-energy / force evaluation (counterpart of
 ``openmm_velocityverlet_tpu/forces.py``).
 
-Composes the terms of the middle-scheme main path: the plist direct-space
-sweep (kernel B1 on CUDA, its plain torch version on CPU) plus the residual
-exclusion adjustment; the exact-k Ewald reciprocal and the Tang-Toennies
-damping, with forces by ``torch.autograd.grad``; the bonded, Drude, Thole
-and 1-4 exception terms with analytic forces (``mol_terms`` and
-``term_forces``); the Ewald self and LJ long-range corrections; and
-virtual-site force redistribution.
+Composes the direct-space pair sweep with the residual exclusion
+adjustment; the exact-k Ewald reciprocal and the Tang-Toennies damping,
+with forces by ``torch.autograd.grad``; the bonded, Drude, Thole and 1-4
+exception terms with analytic forces (``mol_terms`` and ``term_forces``);
+the Ewald self and LJ long-range corrections; and virtual-site force
+redistribution.
 
-Not ported yet, and refused with NotImplementedError: the banded and
-strict pair sweeps (kernel B2), kernel-folded 1-4 exceptions, the mesh,
-PME and the fused reciprocal, NBTHOLE, CMAP, GB and external forces.
+Pair sweeps (``pair_mode``): "plist", the tile-pair list of kernel B1 (the
+default); "band", the z-banded upper-triangle sweep of kernel B2, selected
+by ``fold_exc14=True`` as in the JAX package, with regular 1-4 exceptions
+folded into the kernel; "dense", the all-pairs torch sweep.
+``strict_pairs=True`` takes kernel B2's exhaustive sweep on a step whose
+coverage check trips.  Reciprocal: ``recip="exact"`` (one matrix product,
+autograd) or ``"exact_fused"`` (kernels B4/B5).  On a CPU tensor every
+kernel wrapper takes its plain torch version.
+
+Not ported yet, and refused with NotImplementedError: the mesh, PME,
+NBTHOLE, CMAP, GB and external forces.
 """
 from __future__ import annotations
 
@@ -20,9 +27,9 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from .ops import (allpairs, ewald, mol_terms, nonbonded, pair_plist,
-                  term_forces, vsites)
-from .system import System
+from .ops import (allpairs, ewald, ewald_fused, mol_terms, nonbonded,
+                  pair_plist, pair_tri, term_forces, vsites)
+from .system import System, resolve_device
 
 
 def _drop_constraint_null_terms(system):
@@ -81,25 +88,18 @@ class ForceEvaluator:
                  pair_kernel: str = "auto", box_hint=None, pos_hint=None,
                  pair_ts: int = 0, fold_exc14: bool = False,
                  recip: str = "exact", mesh=None,
-                 strict_pairs: bool = False, device="cpu"):
+                 strict_pairs: bool = False, device="cuda"):
         if external_forces:
             raise NotImplementedError(
                 "external forces are not ported yet (ROADMAP A11)")
         if mesh is not None:
             raise NotImplementedError(
                 "the multi-device mesh is not ported yet (ROADMAP A16)")
-        if fold_exc14:
+        if recip not in ("exact", "exact_fused"):
             raise NotImplementedError(
-                "kernel-folded 1-4 exceptions need the z-band sweep, "
-                "kernel B2 (ROADMAP B2)")
-        if strict_pairs:
-            raise NotImplementedError(
-                "strict pair coverage needs the exact fallback sweep, "
-                "kernel B2 (ROADMAP B2)")
-        if recip != "exact":
-            raise NotImplementedError(
-                f"recip={recip!r}: only the exact-k reciprocal is ported "
-                "(PME and the fused kernels B4/B5: ROADMAP A13)")
+                f"recip={recip!r}: the port has the exact-k reciprocal "
+                "('exact') and its fused kernels ('exact_fused'); PME is "
+                "ROADMAP A13")
         if int(np.asarray(system.nbt_idx).max(initial=0)) > 0:
             raise NotImplementedError("NBTHOLE is not ported yet "
                                       "(ROADMAP A13)")
@@ -111,15 +111,20 @@ class ForceEvaluator:
         if pair_kernel == "auto":
             pair_kernel = "plist"
         if pair_kernel not in ("plist", "dense"):
-            raise NotImplementedError(
-                f"pair_kernel={pair_kernel!r}: the port has 'plist' "
-                "(kernel B1) and 'dense'; the banded sweep is kernel B2 "
-                "(ROADMAP B2)")
+            raise ValueError(
+                f"pair_kernel={pair_kernel!r}: the port's pair kernels are "
+                "'plist' and 'dense'; the z-band sweep is selected with "
+                "fold_exc14=True")
         self.system = system
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.ewald_chunk = ewald_chunk
         self.row_block = row_block
         self.pair_kernel = pair_kernel
+        # the z band carries kernel-folded 1-4 exceptions; the tile-pair
+        # list does not (the JAX pair_mode choice, forces.py:139-142)
+        self.pair_mode = ("dense" if pair_kernel == "dense"
+                          else "band" if fold_exc14 else "plist")
+        self.strict_pairs = bool(strict_pairs)
         self.recip_method = recip
         self.skin = 0.1
         dev = self.device
@@ -132,22 +137,51 @@ class ForceEvaluator:
         if vidx.size:
             inert[vidx] = False
         self._inert_mask = inert if inert.any() else None
-
-        # jointly pick sort key and tile size minimising (pair slots +
-        # per-entry overhead) from the exact candidate enumeration of the
-        # initial configuration
-        self.plist_sort = "morton"
         rc_cand = system.r_cutoff + self.skin
         have_hint = pos_hint is not None and box_hint is not None
+        # band_atoms: atoms inside any (cutoff + skin) z-window, from the
+        # max z-local density of the initial configuration when available
+        band_atoms = 0.0
+        if box_hint is not None and system.n_atoms > 0:
+            lz = float(np.asarray(box_hint).reshape(-1)[2])
+            if pos_hint is not None:
+                zw = np.asarray(pos_hint)[:, 2] % lz
+                hist = np.histogram(zw, bins=np.arange(0.0, lz + 0.05,
+                                                       0.05))[0]
+                kwin = max(1, int(np.ceil(rc_cand / 0.05)))
+                wrap = np.concatenate([hist, hist[:kwin]])
+                band_atoms = float(np.convolve(
+                    wrap, np.ones(kwin), mode="valid").max()) * 1.10
+            else:
+                band_atoms = rc_cand * (system.n_atoms / lz) * 1.08
+
+        self.plist_sort = "morton"
         if pair_ts:
             self.pair_ts = int(pair_ts)
-            if have_hint:
+            if have_hint and self.pair_mode == "plist":
                 cnts = {key: pair_plist.count_candidates_np(
                             pos_hint, box_hint, self.pair_ts, rc_cand,
                             mode=key, inert=self._inert_mask)
                         for key in ("z", "morton")}
                 self.plist_sort = min(cnts, key=cnts.get)
+        elif self.pair_mode == "band":
+            # the tile size minimising the banded sweep's pair count (the
+            # band width quantises to whole tiles)
+            best = None
+            for cand in (512, 640, 768):
+                n_pad = -(-system.n_atoms // cand) * cand
+                w = int(np.ceil(band_atoms / cand)) if band_atoms else 0
+                if w and pair_tri.band_eligible(n_pad, cand, w):
+                    cost = (n_pad // cand) * (w + 1) * cand * cand
+                else:
+                    cost = n_pad * n_pad // 2
+                if best is None or cost < best[0]:
+                    best = (cost, cand)
+            self.pair_ts = best[1]
         else:
+            # jointly pick sort key and tile size minimising (pair slots +
+            # per-entry overhead) from the exact candidate enumeration of
+            # the initial configuration
             best = (0, 256, "morton")
             if have_hint:
                 best = None
@@ -161,34 +195,41 @@ class ForceEvaluator:
                             best = (cost, cand, key)
             self.pair_ts = best[1]
             self.plist_sort = best[2]
-        # pair-list capacity: exact initial count x drift margin
-        n_tiles = -(-system.n_atoms // self.pair_ts)
-        full = n_tiles * (n_tiles + 1) // 2
-        self.plist_cap = full
-        if have_hint:
-            cnt = pair_plist.count_candidates_np(
-                pos_hint, box_hint, self.pair_ts, rc_cand,
-                mode=self.plist_sort, inert=self._inert_mask)
-            self.plist_cap = min(full, int(cnt * 1.6) + 64)
+        self.band_w = (int(np.ceil(band_atoms / self.pair_ts))
+                       if band_atoms else 0)
+        # pair-list capacity: exact initial count x drift margin; and the
         # first-atom-frame ("nowrap") axes of the plist kernel, re-verified
         # per step by the coverage check
+        self.plist_cap = 0
         self.plist_nowrap = (False, False, False)
-        if have_hint:
-            self.plist_nowrap = pair_plist.nowrap_axes_np(
-                pos_hint, box_hint, self.pair_ts, rc_cand,
-                mode=self.plist_sort)
+        if self.pair_mode == "plist":
+            n_tiles = -(-system.n_atoms // self.pair_ts)
+            self.plist_cap = n_tiles * (n_tiles + 1) // 2
+            if have_hint:
+                cnt = pair_plist.count_candidates_np(
+                    pos_hint, box_hint, self.pair_ts, rc_cand,
+                    mode=self.plist_sort, inert=self._inert_mask)
+                self.plist_cap = min(self.plist_cap, int(cnt * 1.6) + 64)
+                self.plist_nowrap = pair_plist.nowrap_axes_np(
+                    pos_hint, box_hint, self.pair_ts, rc_cand,
+                    mode=self.plist_sort)
         self.pair_tables = allpairs.build_pair_tables(
             system.n_atoms, system.lj_type, system.acoef, system.bcoef,
             system.exclusions, system.lj_group, system.lj_group_allowed,
             exc_idx=system.exc_idx, exc_qq=system.exc_qq,
             exc_c6=system.exc_c6, exc_c12=system.exc_c12,
-            charges=system.charges, fold_exc14=False)
+            charges=system.charges, fold_exc14=fold_exc14)
         if self.pair_tables["residual"].shape[0]:
             self.pair_tables["residual_dev"] = allpairs.residual_tensors(
                 self.pair_tables, dev)
-        self.statics = (pair_plist.padded_statics(
-            system.charges, self.pair_tables, self.pair_ts, dev)
-            if pair_kernel == "plist" else None)
+        self.statics = None
+        if self.pair_mode == "plist":
+            self.statics = pair_plist.padded_statics(
+                system.charges, self.pair_tables, self.pair_ts, dev)
+        elif self.pair_mode == "band":
+            self.statics = pair_tri.band_statics(
+                system.charges, self.pair_tables,
+                pair_tri.padded_size(system.n_atoms, self.pair_ts), dev)
 
         def build_term_eval(sysm):
             exc_mask = self.pair_tables["exc_term_mask"]
@@ -212,8 +253,17 @@ class ForceEvaluator:
             else build_term_eval(fsys))
 
     @property
-    def uses_plist(self) -> bool:
-        return self.pair_kernel == "plist"
+    def uses_band(self) -> bool:
+        """True when the step carries a sorted pair cache: the plist list,
+        or the z band when it is eligible (its enumeration covers every
+        tile pair once)."""
+        if self.pair_mode == "plist":
+            return self.plist_cap > 0
+        if self.pair_mode == "band":
+            return pair_tri.band_eligible(
+                pair_tri.padded_size(self.system.n_atoms, self.pair_ts),
+                self.pair_ts, self.band_w)
+        return False
 
     # -- virtual sites ----------------------------------------------------
     def place_vsites(self, pos):
@@ -224,8 +274,13 @@ class ForceEvaluator:
 
     # -- spatial-sort cache -------------------------------------------------
     def make_pair_cache(self, pos_raw, box):
-        """The sorted layout and pair list of the force path (rebuilt every
-        sort_refresh steps and after a coverage trip)."""
+        """The sorted layout (and, in plist mode, the pair list) of the
+        force path, rebuilt every sort_refresh steps and after a coverage
+        trip."""
+        if self.pair_mode == "band":
+            return pair_tri.make_pair_cache(
+                self.place_vsites(pos_raw), box, self.t.charges,
+                self.pair_tables, self.pair_ts, statics=self.statics)
         return pair_plist.make_pair_cache(
             self.place_vsites(pos_raw), box, self.system.charges,
             self.pair_tables, self.pair_ts, mode=self.plist_sort,
@@ -263,7 +318,12 @@ class ForceEvaluator:
         and the TT damping."""
         s, t = self.system, self.t
         terms = {}
-        if s.ewald_beta > 0:
+        if s.ewald_beta > 0 and self.recip_method == "exact_fused":
+            # kernels B4 (forward) and B5 (backward): nothing of size
+            # (N, K) is stored
+            terms["coul_recip"] = ewald_fused.reciprocal_energy_fused(
+                pos, box, t.charges, s.ewald_beta, s.kmax, 256)
+        elif s.ewald_beta > 0:
             terms["coul_recip"] = ewald.reciprocal_energy(
                 pos, box, t.charges, s.ewald_beta, s.kmax,
                 chunk=self.ewald_chunk)
@@ -277,21 +337,30 @@ class ForceEvaluator:
     @torch.no_grad()
     def energy_forces(self, pos_raw, box, want_energy: bool = True,
                       pair_cache=None, return_cov: bool = False):
-        """Returns (terms dict, forces on real dofs), plus the pair-list
-        coverage flag (a device bool) when ``return_cov``.  With
+        """Returns (terms dict, forces on real dofs), plus the pair
+        coverage flag when ``return_cov``: a device bool, or a Python bool
+        when ``strict_pairs`` has read it on the host already.  With
         ``want_energy=False`` the pair kernel takes its force-only
         specialization and the constraint-null springs are skipped."""
         s, t = self.system, self.t
         pos = self.place_vsites(pos_raw)
         cov = torch.zeros((), dtype=torch.bool, device=pos.device)
-        if self.pair_kernel == "plist":
+        if self.pair_mode == "plist":
             e_lj, e_coul_dir, e_corr, e14c, e14l, f_direct, cov = \
                 pair_plist.direct_space_plist(
                     pos, box, t.charges, self.pair_tables, s.ewald_beta,
                     s.r_cutoff, self.pair_ts, want_energy=want_energy,
                     cache=pair_cache, plist_cap=self.plist_cap,
                     skin=self.skin, plist_sort=self.plist_sort,
-                    r_switch=s.r_switch, nowrap=self.plist_nowrap,
+                    r_switch=s.r_switch, strict=self.strict_pairs,
+                    nowrap=self.plist_nowrap, statics=self.statics)
+        elif self.pair_mode == "band":
+            e_lj, e_coul_dir, e_corr, e14c, e14l, f_direct, cov = \
+                pair_tri.direct_space_band(
+                    pos, box, t.charges, self.pair_tables, s.ewald_beta,
+                    s.r_cutoff, self.pair_ts, self.band_w,
+                    want_energy=want_energy, cache=pair_cache,
+                    r_switch=s.r_switch, strict=self.strict_pairs,
                     statics=self.statics)
         else:
             e_lj, e_coul_dir, e_corr, e14c, e14l, f_direct = \

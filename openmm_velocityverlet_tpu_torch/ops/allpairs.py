@@ -48,9 +48,9 @@ def build_pair_tables(n_atoms, lj_type, acoef, bcoef, exclusions,
     exception — Coulomb exactly 0.5 q_i q_j and LJ consistent with a single
     per-type-pair (a14, b14) table (CHARMM rmin_14/eps_14 geometric rule,
     reference oplspsffile.py:1408-1427) — within the 31-offset window is
-    recorded for folding into the pair sweep (``exc14_bits``, kernel B2's
-    ``fold_exc14`` mode; the port builds with fold_exc14=False).  Irregular
-    or distant exceptions stay in the sparse term pass.
+    folded into the pair sweep itself (``exc14_bits``: the band sweep of
+    kernel B2 and the dense sweep evaluate them on the exclusion-correction
+    path).  Irregular or distant exceptions stay in the sparse term pass.
     """
     lj_type = np.asarray(lj_type)
     acoef = np.asarray(acoef, np.float64)
@@ -258,14 +258,14 @@ def lj_switch(e_lj, f_lj, r, inv_r, r_switch, r_cutoff):
 
 
 def _pair_terms(r2, qq, a, b, beta, r_cutoff, direct_mask, corr_mask,
-                r_switch=0.0):
+                exc14_mask=None, a14=None, b14=None, r_switch=0.0):
     """Shared LJ + Ewald-direct + exclusion-correction math.
 
     direct pairs:   E = a^2/r^12 - b/r^6 + qq erfc(beta r)/r
     excluded pairs: E = -qq erf(beta r)/r   (reciprocal-space correction)
-    Returns (e_lj, e_coul, e_corr, f_scalar).  Kernel-folded 1-4
-    exceptions (``fold_exc14``) are not ported: the port's tables are
-    always built with ``fold_exc14=False``.
+    folded 1-4 exception pairs (``exc14_mask``, see build_pair_tables):
+                    additionally E = 0.5 qq/r + a14^2/r^12 - b14/r^6
+    Returns (e_lj, e_coul, e_corr, e14_coul, e14_lj, f_scalar).
     """
     in_range = direct_mask & (r2 < r_cutoff * r_cutoff)
     r2s = torch.clamp(r2, min=1e-10)
@@ -294,9 +294,19 @@ def _pair_terms(r2, qq, a, b, beta, r_cutoff, direct_mask, corr_mask,
     zero = torch.zeros_like(e_lj)
     f_s = torch.where(in_range, f_lj + f_coul, zero) \
         + torch.where(corr_mask, f_corr, zero)
+    if exc14_mask is None:
+        e14_c = e14_l = zero
+    else:
+        e14_c = 0.5 * qq * inv_r
+        e14_12 = a14 * a14 * inv_r12
+        e14_6 = b14 * inv_r6
+        f14 = (e14_c + 12.0 * e14_12 - 6.0 * e14_6) * inv_r2
+        e14_l = torch.where(exc14_mask, e14_12 - e14_6, zero)
+        e14_c = torch.where(exc14_mask, e14_c, zero)
+        f_s = f_s + torch.where(exc14_mask, f14, zero)
     return (torch.where(in_range, e_lj, zero),
             torch.where(in_range, e_coul, zero),
-            torch.where(corr_mask, e_corr, zero), f_s)
+            torch.where(corr_mask, e_corr, zero), e14_c, e14_l, f_s)
 
 
 def residual_tensors(tables, device):
@@ -329,9 +339,9 @@ def residual_pair_terms(pos, box, charges, tables, beta, r_cutoff,
     r2 = torch.sum(dr * dr, -1)
     qq = rt["qq"] if "qq" in rt else ONE_4PI_EPS0 * charges[i] * charges[j]
     ones = torch.ones(r2.shape, dtype=torch.bool, device=dev)
-    _, _, e_corr_r, f_corr_only = _pair_terms(
+    _, _, e_corr_r, _, _, f_corr_only = _pair_terms(
         r2, qq, a, b, beta, r_cutoff, direct_mask=~ones, corr_mask=ones)
-    e_lj_d, e_coul_d, _, f_direct_only = _pair_terms(
+    e_lj_d, e_coul_d, _, _, _, f_direct_only = _pair_terms(
         r2, qq, a, b, beta, r_cutoff, direct_mask=ones, corr_mask=~ones,
         r_switch=r_switch)
     f_adj = (f_corr_only - f_direct_only)[:, None] * dr
@@ -342,28 +352,33 @@ def residual_pair_terms(pos, box, charges, tables, beta, r_cutoff,
 def direct_space_dense(pos, box, charges, tables, beta, r_cutoff,
                        row_block: int = 1024, r_switch: float = 0.0):
     """All-pairs LJ + Ewald-direct + exclusion-correction sweep over row
-    blocks.  Returns (E_lj, E_coul_direct, E_excl_corr, E_exc14_coul,
-    E_exc14_lj, F); the two 1-4 energies are zero (fold_exc14 is not
-    ported)."""
-    if tables.get("has_exc14", False):
-        raise NotImplementedError(
-            "kernel-folded 1-4 exceptions (fold_exc14=True) are not ported "
-            "yet (ROADMAP B2)")
+    blocks, with the folded 1-4 exceptions when the tables carry them.
+    Returns (E_lj, E_coul_direct, E_excl_corr, E_exc14_coul, E_exc14_lj,
+    F)."""
     dev = pos.device
     n = pos.shape[0]
     q = charges
-    acoef_rows = torch.as_tensor(tables["arows"], device=dev)
-    bcoef_rows = torch.as_tensor(tables["brows"], device=dev)
-    onehot = torch.as_tensor(tables["onehot"], device=dev)
-    excl_bits = torch.as_tensor(tables["excl_bits"].astype(np.int64),
-                                device=dev)
-    grows = (torch.as_tensor(tables["grows"], device=dev)
-             if tables["grows"] is not None else None)
-    gonehot = (torch.as_tensor(tables["gonehot"], device=dev)
-               if tables["grows"] is not None else None)
+    has14 = bool(tables.get("has_exc14", False))
+
+    def dev_t(a, dtype=None):
+        return torch.as_tensor(a if dtype is None else a.astype(dtype),
+                               device=dev)
+
+    acoef_rows = dev_t(tables["arows"])
+    bcoef_rows = dev_t(tables["brows"])
+    onehot = dev_t(tables["onehot"])
+    excl_bits = dev_t(tables["excl_bits"], np.int64)
+    if has14:
+        a14_rows = dev_t(tables["a14rows"])
+        b14_rows = dev_t(tables["b14rows"])
+        exc14_bits = dev_t(tables["exc14_bits"], np.int64)
+    grows = (dev_t(tables["grows"]) if tables["grows"] is not None
+             else None)
+    gonehot = (dev_t(tables["gonehot"]) if tables["grows"] is not None
+               else None)
     col_id = torch.arange(n, device=dev)[None, :]
     z = torch.zeros((), dtype=torch.float32, device=dev)
-    e_lj = e_coul = e_corr = z
+    sums = [z] * 5
     rows = []
     B = min(row_block, n)
     for s in range(0, n, B):
@@ -373,10 +388,14 @@ def direct_space_dense(pos, box, charges, tables, beta, r_cutoff,
         delta = col_id - rid[:, None]
         dfwd = torch.clamp(delta, 1, MAX_EXCL_OFFSET)
         dbwd = torch.clamp(-delta, 1, MAX_EXCL_OFFSET)
-        excl = (((excl_bits[rid][:, None] >> dfwd) & 1) > 0) \
-            & (delta >= 1) & (delta <= MAX_EXCL_OFFSET)
-        excl |= (((excl_bits[None, :] >> dbwd) & 1) > 0) \
-            & (delta <= -1) & (delta >= -MAX_EXCL_OFFSET)
+        fwd = (delta >= 1) & (delta <= MAX_EXCL_OFFSET)
+        bwd = (delta <= -1) & (delta >= -MAX_EXCL_OFFSET)
+
+        def bit_test(bits):
+            return ((((bits[rid][:, None] >> dfwd) & 1) > 0) & fwd) \
+                | ((((bits[None, :] >> dbwd) & 1) > 0) & bwd)
+
+        excl = bit_test(excl_bits)
         alive = delta != 0
         a = acoef_rows[rid] @ onehot.t()
         b = bcoef_rows[rid] @ onehot.t()
@@ -384,19 +403,22 @@ def direct_space_dense(pos, box, charges, tables, beta, r_cutoff,
             allowed = grows[rid] @ gonehot.t()
             a = a * allowed
             b = b * allowed
+        kw14 = {}
+        if has14:
+            kw14 = dict(exc14_mask=bit_test(exc14_bits) & alive,
+                        a14=a14_rows[rid] @ onehot.t(),
+                        b14=b14_rows[rid] @ onehot.t())
         qq = ONE_4PI_EPS0 * q[rid][:, None] * q[None, :]
-        el, ec, ex, f_s = _pair_terms(
+        *energies, f_s = _pair_terms(
             r2, qq, a, b, beta, r_cutoff, direct_mask=alive & ~excl,
-            corr_mask=alive & excl, r_switch=r_switch)
+            corr_mask=alive & excl, r_switch=r_switch, **kw14)
         rows.append(torch.sum(f_s[..., None] * dr, dim=1))
-        e_lj = e_lj + torch.sum(el)
-        e_coul = e_coul + torch.sum(ec)
-        e_corr = e_corr + torch.sum(ex)
+        sums = [acc + torch.sum(e) for acc, e in zip(sums, energies)]
     forces = torch.cat(rows, 0)
-    e_lj, e_coul, e_corr = 0.5 * e_lj, 0.5 * e_coul, 0.5 * e_corr
+    e_lj, e_coul, e_corr, e14_c, e14_l = [0.5 * e for e in sums]
     if tables["residual"].shape[0]:
         d_lj, d_coul, d_corr, i, j, f_adj = residual_pair_terms(
             pos, box, charges, tables, beta, r_cutoff, r_switch)
         e_lj, e_coul, e_corr = e_lj + d_lj, e_coul + d_coul, e_corr + d_corr
         forces = forces.index_add(0, i, f_adj).index_add(0, j, -f_adj)
-    return e_lj, e_coul, e_corr, z, z, forces
+    return e_lj, e_coul, e_corr, e14_c, e14_l, forces

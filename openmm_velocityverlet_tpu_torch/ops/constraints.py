@@ -18,6 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..system import resolve_device
 from ..utils.pbc import minimum_image
 
 K_CAP = 4
@@ -49,7 +50,8 @@ class ConstraintData:
 
 def build_constraint_data(pairs, dists, inv_masses, tolerance=1e-5,
                           max_iterations=150,
-                          device="cpu") -> ConstraintData:
+                          device="cuda") -> ConstraintData:
+    device = resolve_device(device)
     pairs = np.asarray(pairs, np.int32).reshape(-1, 2)
     dists = np.asarray(dists, np.float32).reshape(-1)
     n = len(inv_masses)

@@ -123,6 +123,10 @@ class PairCache(NamedTuple):
     row_ptr: torch.Tensor    # (T+1,) i32
     col_ptr: torch.Tensor    # (T+1,) i32
     col_idx: torch.Tensor    # (cap,) i32
+    # row-layout LJ rows [A | B] and group rows, sorted: the strict
+    # fallback runs kernel B2 on this layout (pair_tri.run_tri)
+    ab: torch.Tensor         # (n_pad, 2T) f32
+    grows: Optional[torch.Tensor]  # (n_pad, G) f32, None without groups
 
 
 def _f32_sq(x: float) -> float:
@@ -202,9 +206,9 @@ def padded_statics(charges, tables, ts, device):
     ``make_pair_cache``."""
     if tables.get("has_exc14", False):
         raise NotImplementedError(
-            "kernel-folded 1-4 exceptions (fold_exc14=True) belong to the "
-            "upper-triangle sweep, kernel B2 (ROADMAP B2); build the tables "
-            "with fold_exc14=False")
+            "the tile-pair list does not fold 1-4 exceptions (nor does the "
+            "JAX plist sweep); they run in the band sweep, which "
+            "ForceEvaluator(fold_exc14=True) selects")
     n = tables["arows"].shape[0]
     pad = -(-n // ts) * ts - n
 
@@ -340,6 +344,7 @@ def make_pair_cache(pos, box, charges, tables, ts: int, mode: str = "morton",
                   torch.nn.functional.pad(bv, (0, g)),
                   torch.nn.functional.pad(grows, (t_dim, 0))]
     else:
+        grows = None
         blocks = [av, bv]
     k2 = blocks[0].shape[1]
     ab2 = torch.cat([blk.reshape(n_tiles, ts, k2) for blk in blocks],
@@ -360,7 +365,8 @@ def make_pair_cache(pos, box, charges, tables, ts: int, mode: str = "morton",
         grp=statics["grp"][perm].contiguous(), ab2=ab2, plist=plist,
         cand=cand, overflow=overflow, tile_inert=tile_inert,
         row_ptr=row_ptr.to(i32), col_ptr=col_ptr.to(i32),
-        col_idx=col_idx.to(i32))
+        col_idx=col_idx.to(i32), ab=ab.contiguous(),
+        grows=None if grows is None else grows.contiguous())
 
 
 def plist_coverage_bad(pos_sorted, box, cache: PairCache, ts: int,
@@ -494,6 +500,53 @@ def _kernel_scalars(beta, r_cutoff):
                                                           float(r_cutoff))])
 
 
+def pair_math(r2, qq, a, b, sc, *, beta, r_cutoff, r_switch, want_energy):
+    """The per-pair LJ + Ewald arithmetic of kernels B1 and B2, in their
+    order: returns (e_lj, f_lj, e_c, erf_inv_r, f_x, f_c, inv_r, inv_r6).
+    LJ is (a/r^6)^2 - b/r^6 with 1/r^2 capped at 1e6, so a zero-LJ pad
+    pair stays 0 * finite; the bare Coulomb 1/r^3 is capped at 1/0.045^3.
+    The energy form takes the A&S erfc (``e_c``, ``erf_inv_r`` set); the
+    force-only form the Chebyshev polynomial of ``sc["pcoef"]`` (both
+    None)."""
+    r2s = torch.clamp(r2, min=1e-10)
+    inv_r = torch.rsqrt(r2s)
+    inv_r2 = inv_r * inv_r
+    inv_r2_lj = torch.clamp(inv_r2, max=1e6)
+    inv_r6 = inv_r2_lj * inv_r2_lj * inv_r2_lj
+    alj = a * inv_r6
+    a12 = alj * alj
+    b6 = b * inv_r6
+    e_lj = a12 - b6
+    f_lj = (12.0 * a12 - 6.0 * b6) * inv_r2_lj
+    if r_switch:
+        from .allpairs import lj_switch
+        e_lj, f_lj = lj_switch(e_lj, f_lj, r2s * inv_r, inv_r, r_switch,
+                               r_cutoff)
+    e_c = erf_inv_r = None
+    if want_energy:
+        r = r2s * inv_r
+        br = beta * r
+        expm = torch.exp(-br * br)
+        t = 1.0 / (1.0 + 0.3275911 * br)
+        erfc_br = (t * (0.254829592 + t * (-0.284496736
+                   + t * (1.421413741 + t * (-1.453152027
+                   + t * 1.061405429))))) * expm
+        gauss = sc["gauss_pref"] * expm
+        e_c = qq * erfc_br * inv_r
+        erf_inv_r = (1.0 - erfc_br) * inv_r
+        f_x = -qq * (erf_inv_r - gauss) * inv_r2
+        f_c = qq * torch.clamp(inv_r * inv_r2, max=_CAP3) + f_x
+    else:
+        pc = sc["pcoef"]
+        pp = torch.full_like(r2s, pc[-1])
+        for cof in pc[-2::-1]:
+            pp = pp * r2s + cof
+        wq = qq * pp
+        f_c = qq * torch.clamp(inv_r * inv_r2, max=_CAP3) + wq
+        f_x = wq
+    return e_lj, f_lj, e_c, erf_inv_r, f_x, f_c, inv_r, inv_r6
+
+
 def plist_pair_reference(plist, row_ptr, col_ptr, col_idx, pos, q, ab2,
                          ljt, grp, bits, oid, box, *, ts, t_dim, beta,
                          r_cutoff, r_switch=0.0,
@@ -566,41 +619,9 @@ def plist_pair_reference(plist, row_ptr, col_ptr, col_idx, pos, q, ab2,
             a = a * allowed
             b = b * allowed
         qq = ONE_4PI_EPS0 * q_t[ti][:, :, None] * q_t[tj][:, None, :]
-        r2s = torch.clamp(r2, min=1e-10)
-        inv_r = torch.rsqrt(r2s)
-        inv_r2 = inv_r * inv_r
-        inv_r2_lj = torch.clamp(inv_r2, max=1e6)
-        inv_r6 = inv_r2_lj * inv_r2_lj * inv_r2_lj
-        alj = a * inv_r6
-        a12 = alj * alj
-        b6 = b * inv_r6
-        e_lj = a12 - b6
-        f_lj = (12.0 * a12 - 6.0 * b6) * inv_r2_lj
-        if r_switch:
-            from .allpairs import lj_switch
-            e_lj, f_lj = lj_switch(e_lj, f_lj, r2s * inv_r, inv_r, r_switch,
-                                   r_cutoff)
-        if want_energy:
-            r = r2s * inv_r
-            br = beta * r
-            expm = torch.exp(-br * br)
-            t = 1.0 / (1.0 + 0.3275911 * br)
-            erfc_br = (t * (0.254829592 + t * (-0.284496736
-                       + t * (1.421413741 + t * (-1.453152027
-                       + t * 1.061405429))))) * expm
-            gauss = sc["gauss_pref"] * expm
-            e_c = qq * erfc_br * inv_r
-            erf_inv_r = (1.0 - erfc_br) * inv_r
-            f_x = -qq * (erf_inv_r - gauss) * inv_r2
-            f_c = qq * torch.clamp(inv_r * inv_r2, max=_CAP3) + f_x
-        else:
-            pc = sc["pcoef"]
-            pp = torch.full_like(r2s, pc[-1])
-            for cof in pc[-2::-1]:
-                pp = pp * r2s + cof
-            wq = qq * pp
-            f_c = qq * torch.clamp(inv_r * inv_r2, max=_CAP3) + wq
-            f_x = wq
+        e_lj, f_lj, e_c, erf_inv_r, f_x, f_c, _, _ = pair_math(
+            r2, qq, a, b, sc, beta=beta, r_cutoff=r_cutoff,
+            r_switch=r_switch, want_energy=want_energy)
         in_range = alive & ~excl & (r2 < sc["rc2"])
         corr = alive & excl
         f_s = torch.where(in_range, f_lj + f_c, zero) \
@@ -746,17 +767,16 @@ def direct_space_plist(pos, box, charges, tables, beta, r_cutoff, ts: int,
                        statics=None):
     """The plist branch of the JAX ``direct_space_pallas``.  Returns
     (e_lj, e_coul, e_corr, e14_coul, e14_lj, forces, coverage_bad); the two
-    1-4 energies are zero (fold_exc14 is not ported).
+    1-4 energies are zero (1-4 folding runs only in the band sweep).
 
     Without ``cache`` the sort and list are built here (energy queries).
     ``strict=False`` runs the list unconditionally: a step whose coverage
     flag trips may miss a pair just entering the cutoff, and the caller
-    rebuilds the cache at once.  ``strict=True`` would take the exact
-    upper-triangle sweep instead, which is kernel B2."""
-    if strict:
-        raise NotImplementedError(
-            "strict pair coverage needs the exact fallback sweep "
-            "(_run_tri, kernel B2), which is not ported yet (ROADMAP B2)")
+    rebuilds the cache at once.  ``strict=True`` reads the flag on the host
+    before the sweep (the step's one synchronisation) and, when it is set,
+    runs the exhaustive sorted-layout sweep of kernel B2 instead
+    (``pair_tri.run_tri(full_sweep=True)``, the JAX ``lax.cond`` branch);
+    the flag then comes back as a Python bool."""
     dev = pos.device
     box = box.reshape(3)
     if cache is None:
@@ -769,10 +789,21 @@ def direct_space_plist(pos, box, charges, tables, beta, r_cutoff, ts: int,
     pos2d = torch.cat([pos, torch.full((pad, 3), 1e6, dtype=torch.float32,
                                        device=dev)])[cache.perm]
     flag = plist_coverage_bad(pos2d, box, cache, ts, r_cutoff, nowrap=nowrap)
-    rows, colacc = sweep(
-        cache, pos2d, box, ts=ts, t_dim=tables["arows"].shape[1], beta=beta,
-        r_cutoff=r_cutoff, r_switch=r_switch, nowrap=nowrap,
-        want_energy=want_energy)
+    t_dim = tables["arows"].shape[1]
+    if strict:
+        flag = bool(flag)
+    if strict and flag:
+        from .pair_tri import run_tri
+        rows, colacc = run_tri(
+            pos2d, cache.q, cache.ab, cache.bits, cache.bits, cache.oid,
+            cache.ljt, cache.grp, cache.grows, box, ts=ts, t_dim=t_dim,
+            beta=beta, r_cutoff=r_cutoff, has14=False, full_sweep=True,
+            want_energy=want_energy, r_switch=r_switch)
+    else:
+        rows, colacc = sweep(
+            cache, pos2d, box, ts=ts, t_dim=t_dim, beta=beta,
+            r_cutoff=r_cutoff, r_switch=r_switch, nowrap=nowrap,
+            want_energy=want_energy)
     f_full = rows[:, :3] + colacc[:3, :].t()
     forces = f_full[cache.invperm][:n]
     e_lj = torch.sum(rows[:, 3])

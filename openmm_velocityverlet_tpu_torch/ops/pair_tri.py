@@ -1,0 +1,521 @@
+"""The upper-triangle tile sweep and kernel B2 (counterpart of the band half
+of ``openmm_velocityverlet_tpu/ops/pallas_pair.py``: the z-sort
+``make_pair_cache`` without a list, ``band_eligible``,
+``band_coverage_bad``, ``_run_tri`` and the symmetric band branch of
+``direct_space_pallas``).  The JAX names are kept so each counterpart is
+easy to find.
+
+Atoms are sorted by wrapped z and cut into tiles of ``ts`` atoms; Newton's
+third law halves the pair work, so each unordered tile pair is visited
+once.  ``tri_pair`` runs one enumeration of tile pairs (a "mode"):
+
+* ``band``: j = i, i+1 on the unsorted layout, exclusions tested on index
+  positions;
+* ``far``: j >= i+2 on the unsorted layout, cutoff mask only (exclusions
+  span at most 31 < ts positions, so no excluded pair is that far apart);
+* ``bandall``: the z-banded sorted sweep, j = (i+o) mod n_tiles for
+  o = 0..band_w, exclusions tested on the carried original indices;
+  with ``full_sweep`` every unordered tile pair (band_w = n_tiles // 2,
+  the pair at offset n_tiles / 2 kept once when n_tiles is even).
+
+On a CUDA tensor ``tri_pair`` launches kernel B2 (``csrc/tri_pair.cu``);
+on a CPU tensor it takes the plain torch version ``tri_pair_reference``,
+which computes the same ``(rows (n_pad, 8), colacc (8, n_pad))``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from .. import kernels
+from ..units import ONE_4PI_EPS0
+from .pair_plist import (_CAP3, _REF_BATCH_PAIRS, MAX_EXCL_OFFSET,
+                         _kernel_scalars, pair_math, residual_adjustment)
+
+MODES = ("band", "far", "bandall")
+
+
+class BandCache(NamedTuple):
+    """The z-sorted layout of the band sweep (the JAX ``PairCache`` of
+    ``mode="z"`` without a list), rebuilt every few dozen steps; the
+    per-step ``band_coverage_bad`` runs against current positions, so a
+    stale sort stays safe.  Per-atom fields are sorted and n_pad long."""
+    perm: torch.Tensor       # (n_pad,) int64 sorted slot -> original index
+    invperm: torch.Tensor    # (n_pad,) int64
+    q: torch.Tensor          # (n_pad,) f32 charges
+    ab: torch.Tensor         # (n_pad, 2T or 4T) f32 [A | B (| A14 | B14)]
+    bits: torch.Tensor       # (n_pad,) i32 exclusion masks
+    bits14: torch.Tensor     # (n_pad,) i32 folded 1-4 masks (bits14_2d)
+    oid: torch.Tensor        # (n_pad,) i32 original indices (perm)
+    ljt: torch.Tensor        # (n_pad,) i32 LJ type, -1 on pad atoms
+    grp: torch.Tensor        # (n_pad,) i32 interaction group
+    grows: Optional[torch.Tensor]  # (n_pad, G) f32 group rows or None
+
+
+def band_statics(charges, tables, n_pad, device):
+    """Original-order per-atom columns padded to ``n_pad`` (q, ab, bits,
+    bits14, ljt, grp, grows or None) on ``device``: the unsorted layout of
+    the band + far sweep, and the source that ``make_pair_cache`` permutes.
+    Pad atoms carry zero charge, zero LJ rows and type -1.  Build once per
+    system and tile size."""
+    n = tables["arows"].shape[0]
+    pad = n_pad - n
+    has14 = bool(tables.get("has_exc14", False))
+
+    def col(a, fill, dtype):
+        a = np.asarray(a)
+        full = np.concatenate(
+            [a, np.full((pad,) + a.shape[1:], fill, a.dtype)], axis=0)
+        return torch.as_tensor(full.astype(dtype), device=device)
+
+    parts = [tables["arows"], tables["brows"]]
+    if has14:
+        parts += [tables["a14rows"], tables["b14rows"]]
+    groups = tables["grows"] is not None
+    return dict(
+        q=col(np.asarray(charges, np.float32), 0.0, np.float32),
+        ab=col(np.concatenate(parts, 1), 0.0, np.float32),
+        bits=col(tables["excl_bits"], 0, np.int32),
+        bits14=col(tables["exc14_bits"] if has14 else np.zeros(n, np.int32),
+                   0, np.int32),
+        ljt=col(np.argmax(tables["onehot"], axis=1), -1, np.int32),
+        grp=col(np.argmax(tables["gonehot"], axis=1) if groups
+                else np.zeros(n, np.int64), 0, np.int32),
+        grows=col(tables["grows"], 0.0, np.float32) if groups else None)
+
+
+def padded_size(n: int, ts: int, tile_multiple: int = 1) -> int:
+    blk = ts * max(int(tile_multiple), 1)
+    return -(-n // blk) * blk
+
+
+def make_pair_cache(pos, box, charges, tables, ts: int,
+                    tile_multiple: int = 1, statics=None) -> BandCache:
+    """Sort atoms by wrapped z and permute the static columns.
+    ``tile_multiple`` rounds the tile count up to a multiple (the JAX
+    row-sharded sweep's layout).  ``perm`` is bit-identical to the JAX
+    ``make_pair_cache(mode="z")``: a stable sort on the same float32 keys
+    is ``lax.sort((keys, iota), num_keys=2)``."""
+    dev = pos.device
+    n = pos.shape[0]
+    n_pad = padded_size(n, ts, tile_multiple)
+    if statics is None or statics["q"].shape[0] != n_pad:
+        statics = band_statics(charges, tables, n_pad, dev)
+    box = torch.as_tensor(box, dtype=torch.float32, device=dev).reshape(3)
+    lz = box[2]
+    zw = pos[:, 2].to(torch.float32)
+    zw = zw - lz * torch.floor(zw / lz)
+    keys = torch.cat([zw, torch.full((n_pad - n,), 1e30,
+                                     dtype=torch.float32, device=dev)])
+    perm = torch.sort(keys, stable=True).indices
+    invperm = torch.empty_like(perm)
+    invperm[perm] = torch.arange(n_pad, device=dev)
+    grows = statics["grows"]
+    return BandCache(
+        perm=perm, invperm=invperm, q=statics["q"][perm].contiguous(),
+        ab=statics["ab"][perm].contiguous(),
+        bits=statics["bits"][perm].contiguous(),
+        bits14=statics["bits14"][perm].contiguous(),
+        oid=perm.to(torch.int32), ljt=statics["ljt"][perm].contiguous(),
+        grp=statics["grp"][perm].contiguous(),
+        grows=None if grows is None else grows[perm].contiguous())
+
+
+def band_eligible(n_pad: int, ts: int, band_w: int) -> bool:
+    """True when the banded enumeration covers every unordered tile pair
+    exactly once."""
+    n_tiles = n_pad // ts
+    return band_w >= 1 and n_tiles >= 2 * band_w + 1 and n_tiles >= 3
+
+
+@functools.lru_cache(maxsize=16)
+def _uncovered(n_tiles: int, n_ring: int, band_w: int, device: str):
+    """(T,T) bool: tile pairs the band does not visit, with wrap offsets
+    taken on the ring of tiles that hold real atoms."""
+    off = (np.arange(n_tiles)[None, :] - np.arange(n_tiles)[:, None]) \
+        % n_ring
+    covered = np.minimum(off, n_ring - off) <= band_w
+    return torch.as_tensor(~covered, device=device)
+
+
+def band_coverage_bad(pos, box, cache: BandCache, ts: int, band_w: int,
+                      r_cutoff: float):
+    """Device bool: the banded sweep would MISS an interacting pair for the
+    current positions under the cached sort (some uncovered tile pair's
+    circular z-interval gap is within the cutoff, or a tile's interval is
+    degenerate).  Intervals are taken around each tile's circular mean, so
+    atoms that wrapped across the z boundary since the sort do not widen
+    them to the whole box."""
+    n = pos.shape[0]
+    n_pad = cache.perm.shape[0]
+    n_tiles = n_pad // ts
+    dev = pos.device
+    lz = box.reshape(3)[2]
+    zw = pos[:, 2] - lz * torch.floor(pos[:, 2] / lz)
+    keys = torch.cat([zw.to(torch.float32),
+                      torch.full((n_pad - n,), 1e30, dtype=torch.float32,
+                                 device=dev)])
+    skeys = keys[cache.perm].reshape(n_tiles, ts)
+    valid = (cache.perm < n).reshape(n_tiles, ts)
+    nonempty = valid.any(dim=1)
+    two_pi = float(np.float32(2.0 * np.pi))
+    theta = skeys * (two_pi / lz)
+    zero = torch.zeros_like(theta)
+    sn = torch.sum(torch.where(valid, torch.sin(theta), zero), dim=1)
+    cs = torch.sum(torch.where(valid, torch.cos(theta), zero), dim=1)
+    cmean = torch.atan2(sn, cs) * (lz / two_pi)
+    dz = torch.remainder(skeys - cmean[:, None] + 0.5 * lz, lz) - 0.5 * lz
+    inf = torch.full_like(dz, float("inf"))
+    lo = torch.amin(torch.where(valid, dz, inf), dim=1)
+    hi = torch.amax(torch.where(valid, dz, -inf), dim=1)
+    width_bad = (hi - lo) > 0.5 * lz
+    delta = torch.remainder(cmean[None, :] - cmean[:, None] + 0.5 * lz,
+                            lz) - 0.5 * lz
+    gap = torch.where(delta >= 0, delta - hi[:, None] + lo[None, :],
+                      -delta - hi[None, :] + lo[:, None])
+    n_ring = -(-n // ts)
+    bad = _uncovered(n_tiles, n_ring, int(band_w), str(dev)) \
+        & ((gap <= r_cutoff) | width_bad[:, None] | width_bad[None, :]) \
+        & nonempty[:, None] & nonempty[None, :]
+    return torch.any(bad)
+
+
+# ------------------------------------------------------------- kernel B2
+def n_entries(mode: str, n_tiles: int, band_w: int) -> int:
+    """Grid size of one enumeration: bandall n_tiles*(band_w+1), band
+    2*n_tiles, far n_tiles^2 (inactive entries skip)."""
+    if mode == "bandall":
+        return n_tiles * (band_w + 1)
+    return 2 * n_tiles if mode == "band" else n_tiles * n_tiles
+
+
+def tile_pairs(mode: str, n_tiles: int, band_w: int = 0,
+               full_sweep: bool = False):
+    """(i, j) int64 arrays of the active tile pairs of one enumeration, in
+    the kernel's entry order (the JAX grid order)."""
+    e = np.arange(n_entries(mode, n_tiles, band_w))
+    if mode == "bandall":
+        i, o = e // (band_w + 1), e % (band_w + 1)
+        j = (i + o) % n_tiles
+        active = np.ones_like(e, bool)
+        if full_sweep and n_tiles % 2 == 0:
+            # offset n_tiles/2 enumerates each unordered pair twice
+            active = (2 * o != n_tiles) | (i < j)
+    elif mode == "band":
+        i = e // 2
+        j = i + e % 2
+        active = j < n_tiles
+    else:
+        i, j = e // n_tiles, e % n_tiles
+        active = j >= i + 2
+    return i[active], j[active]
+
+
+def tri_pair_reference(pos, q, ab, bits, bits14, oid, ljt, grp, grows, box,
+                       *, ts, t_dim, beta, r_cutoff, mode, band_w=0,
+                       full_sweep=False, want_energy=True, has14=False,
+                       r_switch=0.0):
+    """Plain torch version of kernel B2 (the JAX ``_pair_tri_kernel``):
+    the same ``(rows (n_pad, 8), colacc (8, n_pad))`` from the same inputs,
+    vectorised over batches of tile pairs as (ts, ts) blocks.  rows hold
+    fx, fy, fz, e_lj, e_coul, e_corr, e14_coul, e14_lj; colacc rows 0..2
+    the Newton reaction (none on a diagonal tile)."""
+    if mode not in MODES:
+        raise ValueError(f"tri_pair: unknown mode {mode!r}")
+    dev = pos.device
+    n_pad = pos.shape[0]
+    n_tiles = n_pad // ts
+    test_excl = mode != "far"
+    sc = _kernel_scalars(beta, r_cutoff)
+    i_np, j_np = tile_pairs(mode, n_tiles, band_w, full_sweep)
+    rows = torch.zeros((n_tiles, ts, 8), dtype=torch.float32, device=dev)
+    cols = torch.zeros((n_tiles, ts, 3), dtype=torch.float32, device=dev)
+    if i_np.size == 0:
+        return rows.reshape(n_pad, 8), torch.zeros(
+            (8, n_pad), dtype=torch.float32, device=dev)
+    pos_t = pos.reshape(n_tiles, ts, 3)
+    q_t = q.reshape(n_tiles, ts)
+    # "band" tests exclusions on index positions, "bandall" on the carried
+    # original indices
+    ids = torch.arange(n_pad, device=dev) if mode == "band" else oid
+    ids_t = ids.reshape(n_tiles, ts).to(torch.int64)
+    bits_t = bits.reshape(n_tiles, ts).to(torch.int64)
+    b14_t = bits14.reshape(n_tiles, ts).to(torch.int64)
+    ab_t = ab.reshape(n_tiles, ts, ab.shape[1])
+    ljt_t = ljt.reshape(n_tiles, ts).to(torch.int64)
+    grp_t = grp.reshape(n_tiles, ts).to(torch.int64)
+    grows_t = None if grows is None else grows.reshape(n_tiles, ts, -1)
+    rc2 = sc["rc2"]
+    step = max(1, _REF_BATCH_PAIRS // (ts * ts))
+    for s in range(0, i_np.size, step):
+        ti = torch.as_tensor(i_np[s:s + step], device=dev)
+        tj = torch.as_tensor(j_np[s:s + step], device=dev)
+        diag = ti == tj
+        P, C = pos_t[ti], pos_t[tj]                       # (E,ts,3)
+        d = []
+        for ax in range(3):
+            L = box[ax]
+            da = P[:, :, None, ax] - C[:, None, :, ax]
+            d.append(da - L * torch.round(da * (1.0 / L)))
+        dx, dy, dz = d
+        r2 = dx * dx + dy * dy + dz * dz
+        zero = torch.zeros_like(r2)
+        ct = ljt_t[tj]                                    # (E,ts)
+        colok = (ct >= 0)[:, None, :]
+        idx = torch.clamp(ct, min=0)[:, None, :].expand(-1, ts, -1)
+        rowab = ab_t[ti]                                  # (E,ts,W)
+
+        def lookup(k):
+            return torch.where(colok, torch.gather(
+                rowab[:, :, k * t_dim:(k + 1) * t_dim], 2, idx), zero)
+
+        a, b = lookup(0), lookup(1)
+        if grows_t is not None:
+            gidx = grp_t[tj][:, None, :].expand(-1, ts, -1)
+            allowed = torch.gather(grows_t[ti], 2, gidx)
+            a = a * allowed
+            b = b * allowed
+        qq = ONE_4PI_EPS0 * q_t[ti][:, :, None] * q_t[tj][:, None, :]
+        e_lj, f_lj, e_c, erf_inv_r, f_x, f_c, inv_r, inv_r6 = pair_math(
+            r2, qq, a, b, sc, beta=beta, r_cutoff=r_cutoff,
+            r_switch=r_switch, want_energy=want_energy)
+        blk = torch.zeros((ti.shape[0], ts, 8), dtype=torch.float32,
+                          device=dev)
+        half = torch.where(diag, 0.5, 1.0).to(torch.float32)[:, None]
+        if test_excl:
+            delta = ids_t[tj][:, None, :] - ids_t[ti][:, :, None]
+            side = delta >= 0
+            dabs = torch.abs(delta)
+            dsh = torch.clamp(dabs, max=MAX_EXCL_OFFSET)
+            window = dabs <= MAX_EXCL_OFFSET
+            alive = delta != 0
+            bits_lo = torch.where(side, bits_t[ti][:, :, None],
+                                  bits_t[tj][:, None, :])
+            excl = (((bits_lo >> dsh) & 1) > 0) & window & alive
+            in_range = alive & ~excl & (r2 < rc2)
+            corr = alive & excl
+            f_s = torch.where(in_range, f_lj + f_c, zero) \
+                + torch.where(corr, f_x, zero)
+            if has14:
+                b14_lo = torch.where(side, b14_t[ti][:, :, None],
+                                     b14_t[tj][:, None, :])
+                pair14 = (((b14_lo >> dsh) & 1) > 0) & window & alive
+                a14, b14 = lookup(2), lookup(3)
+                inv_r2 = inv_r * inv_r
+                e14_c = 0.5 * qq * inv_r
+                a14lj = a14 * inv_r6
+                e14_12 = a14lj * a14lj
+                e14_6 = b14 * inv_r6
+                f14 = (e14_c + 12.0 * e14_12 - 6.0 * e14_6) * inv_r2
+                f_s = f_s + torch.where(pair14, f14, zero)
+                if want_energy:
+                    blk[:, :, 6] = half * torch.sum(
+                        torch.where(pair14, e14_c, zero), dim=2)
+                    blk[:, :, 7] = half * torch.sum(
+                        torch.where(pair14, e14_12 - e14_6, zero), dim=2)
+            if want_energy:
+                blk[:, :, 5] = half * torch.sum(
+                    torch.where(corr, -qq * erf_inv_r, zero), dim=2)
+        else:
+            in_range = r2 < rc2
+            f_s = torch.where(in_range, f_lj + f_c, zero)
+        fd = torch.stack([f_s * dx, f_s * dy, f_s * dz], dim=-1)
+        blk[:, :, :3] = torch.sum(fd, dim=2)
+        if want_energy:
+            blk[:, :, 3] = half * torch.sum(
+                torch.where(in_range, e_lj, zero), dim=2)
+            blk[:, :, 4] = half * torch.sum(
+                torch.where(in_range, e_c, zero), dim=2)
+        rows.index_add_(0, ti, blk)
+        g = -torch.sum(fd, dim=1)                         # (E,ts,3)
+        g = torch.where(diag[:, None, None], torch.zeros_like(g), g)
+        cols.index_add_(0, tj, g)
+    colacc = torch.zeros((8, n_pad), dtype=torch.float32, device=dev)
+    colacc[:3] = cols.reshape(n_pad, 3).t()
+    return rows.reshape(n_pad, 8), colacc
+
+
+def _launcher():
+    """The kernel library with its C signature declared (pointers and the
+    stream as c_void_p, so ctypes never truncates them to 32 bits)."""
+    lib = kernels.load("tri_pair")
+    if lib.tri_pair_launch.argtypes is None:
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.tri_pair_launch.argtypes = [
+            P, P, P, I, I, P, P, P, I, P, P, P, P, I, I, I, I, I, I, I,
+            F, F, F, F, F, F, ctypes.POINTER(F), P, P, P, P, P]
+        lib.tri_pair_launch.restype = I
+        lib.tri_pair_error_string.argtypes = [I]
+        lib.tri_pair_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(t, name, dtype, shape, device):
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or t.device != device or not t.is_contiguous():
+        raise ValueError(
+            f"tri_pair: {name} must be a contiguous {dtype} tensor of "
+            f"shape {tuple(shape)} on {device}; got {t.dtype} "
+            f"{tuple(t.shape)} on {t.device}")
+
+
+def tri_pair(pos, q, ab, bits, bits14, oid, ljt, grp, grows, box, *, ts,
+             t_dim, beta, r_cutoff, mode, band_w=0, full_sweep=False,
+             want_energy=True, has14=False, r_switch=0.0):
+    """One tile-pair enumeration of the upper-triangle sweep: returns
+    (rows (n_pad, 8), colacc (8, n_pad)).
+
+    On a CUDA tensor this launches kernel B2 (``csrc/tri_pair.cu``) on the
+    current stream and counts the launch in ``tri_pair.launches``; on a
+    CPU tensor it runs ``tri_pair_reference``.  There is no fallback: a
+    CUDA call the kernel cannot take raises."""
+    kw = dict(ts=ts, t_dim=t_dim, beta=beta, r_cutoff=r_cutoff, mode=mode,
+              band_w=band_w, full_sweep=full_sweep, want_energy=want_energy,
+              has14=has14, r_switch=r_switch)
+    dev = pos.device
+    if dev.type == "cpu":
+        return tri_pair_reference(pos, q, ab, bits, bits14, oid, ljt, grp,
+                                  grows, box, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"tri_pair: unsupported device {dev}")
+    if mode not in MODES:
+        raise ValueError(f"tri_pair: unknown mode {mode!r}")
+    if ts % 32 or not 32 <= ts <= 768:
+        raise ValueError(f"tri_pair: ts must be a multiple of 32 in "
+                         f"[32, 768], got {ts}")
+    n_pad = pos.shape[0]
+    if n_pad % ts:
+        raise ValueError(f"tri_pair: {n_pad} atoms is not a whole number "
+                         f"of {ts}-atom tiles")
+    n_tiles = n_pad // ts
+    if mode == "bandall" and not 0 <= band_w < max(n_tiles, 1):
+        raise ValueError(f"tri_pair: band_w {band_w} out of range for "
+                         f"{n_tiles} tiles")
+    i32, f32 = torch.int32, torch.float32
+    ab_w = (4 if has14 else 2) * t_dim
+    _check(pos, "pos", f32, (n_pad, 3), dev)
+    _check(q, "q", f32, (n_pad,), dev)
+    if ab.shape[1] < ab_w:
+        raise ValueError(f"tri_pair: ab needs {ab_w} columns (has14="
+                         f"{has14}), got {ab.shape[1]}")
+    _check(ab, "ab", f32, (n_pad, ab.shape[1]), dev)
+    for name, t in (("bits", bits), ("bits14", bits14), ("oid", oid),
+                    ("ljt", ljt), ("grp", grp)):
+        _check(t, name, i32, (n_pad,), dev)
+    if grows is not None:
+        _check(grows, "grows", f32, (n_pad, grows.shape[1]), dev)
+    _check(box, "box", f32, (3,), dev)
+    sc = _kernel_scalars(beta, r_cutoff)
+    n_ent = n_entries(mode, n_tiles, band_w)
+    rows = torch.empty((n_pad, 8), dtype=f32, device=dev)
+    colacc = torch.empty((8, n_pad), dtype=f32, device=dev)
+    prow = torch.empty((n_ent, 8, ts), dtype=f32, device=dev)
+    pcol = torch.empty((n_ent, 3, ts), dtype=f32, device=dev)
+    pcoef = (ctypes.c_float * len(sc["pcoef"]))(*sc["pcoef"])
+    lib = _launcher()
+    err = lib.tri_pair_launch(
+        pos.data_ptr(), q.data_ptr(), ab.data_ptr(), ab.shape[1], t_dim,
+        ljt.data_ptr(), grp.data_ptr(),
+        None if grows is None else grows.data_ptr(),
+        0 if grows is None else grows.shape[1], bits.data_ptr(),
+        bits14.data_ptr(), oid.data_ptr(), box.data_ptr(), n_pad, ts,
+        MODES.index(mode), int(band_w), int(bool(full_sweep)),
+        int(bool(want_energy)), int(bool(has14)), float(beta), sc["rc2"],
+        float(r_cutoff), float(r_switch), _CAP3, sc["gauss_pref"], pcoef,
+        prow.data_ptr(), pcol.data_ptr(), rows.data_ptr(), colacc.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError("tri_pair kernel launch failed: "
+                           + lib.tri_pair_error_string(err).decode())
+    tri_pair.launches += 1
+    return rows, colacc
+
+
+tri_pair.launches = 0
+
+
+def run_tri(pos, q, ab, bits, bits14, oid, ljt, grp, grows, box, *, ts,
+            t_dim, beta, r_cutoff, has14, band_w=0, want_energy=True,
+            full_sweep=False, r_switch=0.0):
+    """The dispatch of the JAX ``_run_tri``: the full sweep
+    (``bandall`` with band_w = n_tiles // 2) when ``full_sweep``, else
+    ``bandall`` at ``band_w`` when the band is eligible, else ``band`` +
+    ``far``."""
+    n_tiles = pos.shape[0] // ts
+    args = (pos, q, ab, bits, bits14, oid, ljt, grp, grows, box)
+    kw = dict(ts=ts, t_dim=t_dim, beta=beta, r_cutoff=r_cutoff,
+              want_energy=want_energy, has14=has14, r_switch=r_switch)
+    if full_sweep:
+        return tri_pair(*args, mode="bandall", band_w=n_tiles // 2,
+                        full_sweep=True, **kw)
+    if band_eligible(pos.shape[0], ts, band_w):
+        return tri_pair(*args, mode="bandall", band_w=band_w, **kw)
+    rows, colacc = tri_pair(*args, mode="band", **kw)
+    if n_tiles > 2:
+        rows_f, col_f = tri_pair(*args, mode="far", **kw)
+        rows = rows + rows_f
+        colacc = colacc + col_f
+    return rows, colacc
+
+
+def direct_space_band(pos, box, charges, tables, beta, r_cutoff, ts: int,
+                      band_w: int, want_energy: bool = True,
+                      cache: Optional[BandCache] = None,
+                      r_switch: float = 0.0, strict: bool = False,
+                      statics=None):
+    """The symmetric band branch of the JAX ``direct_space_pallas``.
+    Returns (e_lj, e_coul, e_corr, e14_coul, e14_lj, forces,
+    coverage_bad), with the folded 1-4 energies filled in when the tables
+    carry them.
+
+    When the band is eligible the sweep runs on the z-sorted layout
+    (``cache``, built here when None) and ``band_coverage_bad`` is taken on
+    the current positions; ``strict=True`` reads that flag on the host (the
+    step's one synchronisation) and takes the full sweep when it is set,
+    returning it as a Python bool.  Otherwise the unsorted band + far sweep
+    runs and the flag is False."""
+    dev = pos.device
+    box = box.reshape(3)
+    n = pos.shape[0]
+    n_pad = padded_size(n, ts)
+    t_dim = tables["arows"].shape[1]
+    has14 = bool(tables.get("has_exc14", False))
+    pos2d = torch.cat([pos, torch.full((n_pad - n, 3), 1e6,
+                                       dtype=torch.float32, device=dev)])
+    use_band = band_eligible(n_pad, ts, band_w)
+    if use_band:
+        if cache is None:
+            cache = make_pair_cache(pos, box, charges, tables, ts,
+                                    statics=statics)
+        f = cache
+        pos2d = pos2d[cache.perm]
+        flag = band_coverage_bad(pos, box, cache, ts, band_w, r_cutoff)
+        if strict:
+            flag = bool(flag)
+        full = strict and flag
+        oid = cache.oid
+    else:
+        if statics is None or statics["q"].shape[0] != n_pad:
+            statics = band_statics(charges, tables, n_pad, dev)
+        f = BandCache(perm=None, invperm=None, oid=None, **statics)
+        oid = torch.arange(n_pad, dtype=torch.int32, device=dev)
+        flag = torch.zeros((), dtype=torch.bool, device=dev)
+        full = False
+    rows, colacc = run_tri(
+        pos2d, f.q, f.ab, f.bits, f.bits14, oid, f.ljt, f.grp, f.grows, box,
+        ts=ts, t_dim=t_dim, beta=beta, r_cutoff=r_cutoff, has14=has14,
+        band_w=band_w if use_band else 0, want_energy=want_energy,
+        full_sweep=full, r_switch=r_switch)
+    if use_band:
+        forces = (rows[:, :3] + colacc[:3, :].t())[cache.invperm][:n]
+    else:
+        forces = rows[:n, :3] + colacc[:3, :n].t()
+    e = [torch.sum(rows[:, c]) for c in range(3, 8)]
+    e_lj, e_coul, e_corr, forces = residual_adjustment(
+        pos, box, charges, tables, beta, r_cutoff, e[0], e[1], e[2], forces,
+        r_switch=r_switch)
+    return e_lj, e_coul, e_corr, e[3], e[4], forces, flag

@@ -198,6 +198,20 @@ class State:
         return dataclasses.replace(self, **changes)
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device.  The entry points default to "cuda":
+    without a card that default raises here, at construction, rather than
+    the engine running on the host; a CPU run is asked for with
+    ``device="cpu"``."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={str(device)!r} (the entry points' default) needs a "
+            "CUDA card and none is available; pass device='cpu' to run on "
+            "the host")
+    return dev
+
+
 def _generator(device, seed: int) -> torch.Generator:
     g = torch.Generator(device=torch.device(device))
     g.manual_seed(int(seed))
@@ -206,8 +220,9 @@ def _generator(device, seed: int) -> torch.Generator:
 
 def make_state(positions, box, velocities=None, n_temp_groups: int = 3,
                num_nh_chains: int = 3, seed: int = 0,
-               device="cpu") -> State:
+               device="cuda") -> State:
     """A fresh State on ``device`` (velocities default to zero)."""
+    device = resolve_device(device)
     pos = torch.as_tensor(np.asarray(positions, np.float32), device=device)
     n = pos.shape[0]
     vel = (torch.zeros((n, 3), dtype=torch.float32, device=device)
@@ -223,10 +238,12 @@ def make_state(positions, box, velocities=None, n_temp_groups: int = 3,
         generator=_generator(device, seed))
 
 
-def state_from_numpy(obj, device="cpu", seed: int = 0) -> State:
+def state_from_numpy(obj, device="cuda", seed: int = 0) -> State:
     """A port ``State`` from any object with the JAX ``State`` field names.
     A JAX threefry key has no torch counterpart, so the generator is
     seeded from ``seed``."""
+    device = resolve_device(device)
+
     def t(name):
         return torch.as_tensor(np.array(getattr(obj, name), np.float32),
                                device=device)

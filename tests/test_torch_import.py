@@ -68,14 +68,47 @@ def test_system_and_state_from_jax():
     assert ps.n_atoms == js.n_atoms and ps.kmax == tuple(js.kmax)
     np.testing.assert_array_equal(ps.exclusions, np.asarray(js.exclusions))
     jst = jmake_state(pos, box)
-    st = state_from_numpy(jst)
+    st = state_from_numpy(jst, device="cpu")
     np.testing.assert_array_equal(st.pos.numpy(), np.asarray(jst.pos))
     assert st.nh_eta_dot.shape == tuple(jst.nh_eta_dot.shape)
-    fresh = make_state(pos, box)
+    fresh = make_state(pos, box, device="cpu")
     np.testing.assert_array_equal(fresh.pos.numpy(), st.pos.numpy())
     t = ps.to("cpu")
     assert t.exclusions.dtype.is_floating_point is False
     np.testing.assert_array_equal(t.charges.numpy(), ps.charges)
+
+
+def test_entry_points_default_to_the_card():
+    """Context, ForceEvaluator, make_state, state_from_numpy and
+    build_constraint_data default to device="cuda".  Without a card that
+    default raises at construction instead of running on the host; with
+    one, a Context built without a device lives on it."""
+    import inspect
+
+    import torch
+
+    from openmm_velocityverlet_tpu_torch.ops.constraints import \
+        build_constraint_data
+    for fn in (tpkg.Context.__init__, tpkg.ForceEvaluator.__init__,
+               make_state, state_from_numpy, build_constraint_data):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    ps, pos, box = drude_water_box(8)
+    integ = tpkg.VVIntegrator()
+    if torch.cuda.is_available():
+        ctx = tpkg.Context(ps, integ, positions=pos, box=box)
+        assert ctx.state.pos.is_cuda and ctx.evaluator.t.charges.is_cuda
+        return
+    fresh = make_state(pos, box, device="cpu")
+    for build in (
+            lambda: tpkg.Context(ps, integ, positions=pos, box=box),
+            lambda: tpkg.ForceEvaluator(ps, box_hint=box, pos_hint=pos),
+            lambda: make_state(pos, box),
+            lambda: state_from_numpy(fresh),
+            lambda: build_constraint_data(ps.constraints,
+                                          ps.constraint_dist,
+                                          ps.inv_masses)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
 
 
 def test_unported_features_raise():
@@ -92,7 +125,7 @@ def test_unported_features_raise():
         integ = tpkg.VVIntegrator(300.0, 10.0, 1.0, 40.0, 0.001)
         setup(integ)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpkg.Context(ps, integ, positions=pos, box=box)
+            tpkg.Context(ps, integ, positions=pos, box=box, device="cpu")
     b = tpkg.SystemBuilder()
     b.add_particle(10.0, charge=0.5)
     b.add_particle(0.0, charge=-0.5)
@@ -104,14 +137,27 @@ def test_unported_features_raise():
     with pytest.raises(NotImplementedError, match="A11"):
         tpkg.Context(img_sys, integ, positions=[[0.5, 0.5, 0.5],
                                                 [0.5, 0.5, 1.5]],
-                     box=img_box)
+                     box=img_box, device="cpu")
     integ = tpkg.VVIntegrator()
     for kw in (dict(recip="pme"), dict(barostat=object()),
-               dict(mesh=object()), dict(fold_exc14=True),
-               dict(strict_pairs=True), dict(pair_kernel="band"),
+               dict(mesh=object()),
                dict(external_forces=[lambda p, b: 0.0])):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpkg.Context(ps, integ, positions=pos, box=box, **kw)
+            tpkg.Context(ps, integ, positions=pos, box=box, device="cpu",
+                         **kw)
+    # "band" names no pair kernel: the z-band sweep is fold_exc14=True
+    with pytest.raises(ValueError, match="fold_exc14"):
+        tpkg.Context(ps, integ, positions=pos, box=box, device="cpu",
+                     pair_kernel="band")
+    # the band, strict and fused routes are ported (kernels B2, B4, B5)
+    for kw, mode in ((dict(fold_exc14=True), "band"),
+                     (dict(strict_pairs=True), "plist"),
+                     (dict(recip="exact_fused"), "plist")):
+        ctx = tpkg.Context(ps, integ, positions=pos, box=box, device="cpu",
+                           **kw)
+        assert ctx.evaluator.pair_mode == mode
+        assert ctx.evaluator.strict_pairs == kw.get("strict_pairs", False)
+        assert ctx.evaluator.recip_method == kw.get("recip", "exact")
     b = tpkg.SystemBuilder()
     b.add_particle(1.0)
     b.add_cmap_map(np.zeros((24, 24)))

@@ -1,18 +1,24 @@
-"""Kernel B1 (csrc/plist_pair.cu) against its plain torch version on the
-card, for every tile size the ForceEvaluator can choose and both
-specializations.  A CUDA kernel has no CPU mode, so these tests skip on a
-machine without a card; chip_smoke.py runs the same comparison at the main
-path's shapes.
+"""The hand-written kernels against their plain torch versions on the card:
+B1 (csrc/plist_pair.cu) for every tile size the ForceEvaluator can choose
+and both specializations; B2 (csrc/tri_pair.cu) in every tile-pair
+enumeration x specialization x 1-4 folding x interaction groups; B4/B5
+(csrc/ewald_fused.cu) forward, backward and through autograd.  A CUDA
+kernel has no CPU mode, so these tests skip on a machine without a card;
+chip_smoke.py runs the same comparisons at the main path's shapes.
 
 Tolerance: rsqrtf is ~2 ulp from torch.rsqrt and nvcc contracts
-multiply-adds, so kernel and plain version agree to float32 rounding;
-the bounds are the JAX package's pair-sweep tolerances
-(tests/test_pallas.py:179-182)."""
+multiply-adds, so a pair kernel and its plain version agree to float32
+rounding; the bounds are the JAX package's pair-sweep tolerances
+(tests/test_pallas.py:105-107, 179-182, 397-400) and fused-reciprocal
+tolerances (tests/test_ewald_fused.py:36, 52-53)."""
 import numpy as np
 import pytest
 import torch
 
-from openmm_velocityverlet_tpu_torch.ops import allpairs, pair_plist
+from openmm_velocityverlet_tpu_torch.ops import (allpairs, ewald,
+                                                 ewald_fused, pair_plist,
+                                                 pair_tri)
+from openmm_velocityverlet_tpu_torch.units import ONE_4PI_EPS0
 
 pytestmark = pytest.mark.cuda
 
@@ -47,7 +53,8 @@ def _grid_mol_system(rng, nx=4, ny=4, nz=24, lz=12.0, apm=4):
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: kernel B1 has no CPU mode")
+        pytest.skip("needs a CUDA card: the hand-written kernels have no "
+                    "CPU mode")
     return torch.device("cuda")
 
 
@@ -113,3 +120,189 @@ def test_plist_kernel_rejects_bad_input(cuda):
     bad[4] = args[4].double()
     with pytest.raises(ValueError, match="pos"):
         pair_plist.plist_pair(*bad, **kw)
+
+
+# ------------------------------------------------------------- kernel B2
+def _tri_setup(dev, nz, groups, has14):
+    """The grid molecular system in z-sorted tiles, with regular 1-4
+    exceptions on (4m, 4m+3) folded into the tables when ``has14`` (the
+    layout of tests/test_pallas.py:362-400)."""
+    rng = np.random.default_rng(13)
+    lj_type, a, b, excl, pos, box, q = _grid_mol_system(rng, nz=nz)
+    n = len(lj_type)
+    lj_group = rng.integers(0, 2, n) if groups else None
+    allowed = np.array([[True, True], [True, False]]) if groups else None
+    exc = {}
+    if has14:
+        idx = np.full((n, 1), -1, np.int32)
+        qq = np.zeros((n, 1), np.float32)
+        c6 = np.zeros((n, 1), np.float32)
+        c12 = np.zeros((n, 1), np.float32)
+        for m in range(n // 4):
+            i, j = 4 * m, 4 * m + 3
+            ti, tj = lj_type[i], lj_type[j]
+            idx[i, 0], idx[j, 0] = j, i
+            qq[i, 0] = qq[j, 0] = ONE_4PI_EPS0 * 0.5 * q[i] * q[j]
+            c6[i, 0] = c6[j, 0] = 0.6 * b[ti, tj]
+            c12[i, 0] = c12[j, 0] = (0.5 * a[ti, tj]) ** 2
+        exc = dict(exc_idx=idx, exc_qq=qq, exc_c6=c6, exc_c12=c12, charges=q)
+    tables = allpairs.build_pair_tables(n, lj_type, a, b, excl, lj_group,
+                                        allowed, fold_exc14=has14, **exc)
+    assert tables["has_exc14"] == has14
+    posd = torch.as_tensor(pos, dtype=torch.float32, device=dev)
+    boxd = torch.as_tensor(box, dtype=torch.float32, device=dev)
+    return tables, posd, boxd, q
+
+
+# (enumerations, tile size, z-sorted layout): bandall at W = 3; band + far
+# on the unsorted layout; the full sweep with an odd (11) and an even (12)
+# tile count, the latter taking the dedup guard at offset n_tiles / 2,
+# which shows only on the unsorted layout (z-sorted tiles at that offset
+# lie half a box apart and never interact)
+TRI_CASES = {
+    "bandall": ([("bandall", 3, False)], 128, 24, True),
+    "band+far": ([("band", 0, False), ("far", 0, False)], 128, 24, False),
+    "full_odd": ([("bandall", 5, True)], 128, 22, True),
+    "full_even": ([("bandall", 6, True)], 128, 24, True),
+    "full_even_unsorted": ([("bandall", 6, True)], 128, 24, False),
+    "bandall_640": ([("bandall", 1, False)], 640, 30, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TRI_CASES))
+@pytest.mark.parametrize("want_energy", [False, True])
+@pytest.mark.parametrize("has14,groups", [(False, False), (True, False),
+                                          (False, True), (True, True)])
+def test_tri_kernel_matches_plain(cuda, case, want_energy, has14, groups):
+    enums, ts, nz, z_sorted = TRI_CASES[case]
+    tables, posd, boxd, q = _tri_setup(cuda, nz, groups, has14)
+    n = posd.shape[0]
+    n_pad = pair_tri.padded_size(n, ts)
+    st = pair_tri.band_statics(q, tables, n_pad, cuda)
+    if z_sorted:
+        f = pair_tri.make_pair_cache(posd, boxd, q, tables, ts, statics=st)
+        oid = f.oid
+    else:
+        f = pair_tri.BandCache(perm=torch.arange(n_pad, device=cuda),
+                               invperm=None, oid=None, **st)
+        oid = torch.arange(n_pad, dtype=torch.int32, device=cuda)
+    pos2d = torch.cat([posd, torch.full((n_pad - n, 3), 1e6, device=cuda)]
+                      )[f.perm].contiguous()
+    args = (pos2d, f.q, f.ab, f.bits, f.bits14, oid, f.ljt, f.grp, f.grows,
+            boxd)
+    for mode, band_w, full in enums:
+        kw = dict(ts=ts, t_dim=tables["arows"].shape[1], beta=BETA,
+                  r_cutoff=RC, mode=mode, band_w=band_w, full_sweep=full,
+                  want_energy=want_energy, has14=has14)
+        if full:
+            assert kw["band_w"] == (n_pad // ts) // 2
+        before = pair_tri.tri_pair.launches
+        rows, colacc = pair_tri.tri_pair(*args, **kw)
+        assert pair_tri.tri_pair.launches == before + 1
+        rows_p, col_p = pair_tri.tri_pair_reference(*args, **kw)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(rows[:, :3].cpu().numpy(),
+                                   rows_p[:, :3].cpu().numpy(),
+                                   rtol=1e-3, atol=5e-2, err_msg=mode)
+        np.testing.assert_allclose(colacc.cpu().numpy(),
+                                   col_p.cpu().numpy(), rtol=1e-3,
+                                   atol=5e-2, err_msg=mode)
+        e_rtol, e_atol = (5e-5, 1e-3) if has14 else (2e-5, 0.0)
+        for c in range(3, 8):
+            np.testing.assert_allclose(float(rows[:, c].double().sum()),
+                                       float(rows_p[:, c].double().sum()),
+                                       rtol=e_rtol, atol=e_atol + 1e-6,
+                                       err_msg=f"{mode} column {c}")
+        rows2, col2 = pair_tri.tri_pair(*args, **kw)
+        assert torch.equal(rows, rows2) and torch.equal(colacc, col2)
+
+
+def test_tri_kernel_rejects_bad_input(cuda):
+    tables, posd, boxd, q = _tri_setup(cuda, 24, False, False)
+    f = pair_tri.make_pair_cache(posd, boxd, q, tables, 128)
+    pos2d = torch.cat([posd, torch.zeros((f.q.shape[0] - posd.shape[0], 3),
+                                         device=cuda)])[f.perm].contiguous()
+    args = [pos2d, f.q, f.ab, f.bits, f.bits14, f.oid, f.ljt, f.grp, None,
+            boxd]
+    kw = dict(ts=128, t_dim=tables["arows"].shape[1], beta=BETA, r_cutoff=RC,
+              mode="bandall", band_w=3)
+    for k, bad in ((0, pos2d.double()), (1, f.q.cpu()), (3, f.bits[:-1])):
+        wrong = list(args)
+        wrong[k] = bad
+        with pytest.raises(ValueError):
+            pair_tri.tri_pair(*wrong, **kw)
+    with pytest.raises(ValueError, match="ts"):
+        pair_tri.tri_pair(*args, **dict(kw, ts=100))
+    with pytest.raises(ValueError, match="band_w"):
+        pair_tri.tri_pair(*args, **dict(kw, band_w=12))
+
+
+# ---------------------------------------------------------- kernels B4/B5
+def _recip_system(dev, n, seed):
+    rng = np.random.default_rng(seed)
+    box = np.array([2.1, 2.6, 3.4])
+    pos = rng.uniform(0, 1, (n, 3)) * box
+    q = rng.normal(0, 1, n)
+    q -= q.mean()
+    return (torch.as_tensor(pos, dtype=torch.float32, device=dev),
+            torch.as_tensor(box, dtype=torch.float32, device=dev),
+            torch.as_tensor(q, dtype=torch.float32, device=dev))
+
+
+@pytest.mark.parametrize("n,kmax,ts", [(97, (3, 4, 6), 32),
+                                       (3001, (9, 8, 10), 256)])
+def test_fused_kernels_match_plain(cuda, n, kmax, ts):
+    pos, box, q = _recip_system(cuda, n, 21)
+    posp, qp, kvec, w, c0, _, kp, _ = ewald_fused._prep(pos, box, q, 2.8,
+                                                        kmax, ts)
+    b4 = ewald_fused.structure_factor.launches
+    s_re, s_im = ewald_fused.structure_factor(posp, qp, kvec)
+    assert ewald_fused.structure_factor.launches == b4 + 1
+    r_re, r_im = ewald_fused.structure_factor_reference(posp, qp, kvec)
+    e_k = float(c0 * torch.sum(w * (s_re * s_re + s_im * s_im)))
+    e_p = float(c0 * torch.sum(w * (r_re * r_re + r_im * r_im)))
+    np.testing.assert_allclose(e_k, e_p, rtol=2e-5)
+    ab = torch.stack([2.0 * c0 * w * s_im, 2.0 * c0 * w * s_re]).contiguous()
+    b5 = ewald_fused.recip_forces.launches
+    f = ewald_fused.recip_forces(posp, qp, kvec, ab)
+    assert ewald_fused.recip_forces.launches == b5 + 1
+    f_p = ewald_fused.recip_forces_reference(posp, qp, kvec, ab)
+    scale = float(f_p.abs().max())
+    np.testing.assert_allclose(f.cpu().numpy(), f_p.cpu().numpy(),
+                               atol=3e-5 * scale, rtol=2e-4)
+    again = ewald_fused.structure_factor(posp, qp, kvec)
+    f2 = ewald_fused.recip_forces(posp, qp, kvec, ab)
+    assert torch.equal(again[0], s_re) and torch.equal(again[1], s_im)
+    assert torch.equal(f2, f)
+
+
+def test_fused_autograd_matches_matmul_route(cuda):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pos, box, q = _recip_system(cuda, 2000, 22)
+    kmax = (9, 8, 10)
+    p1 = pos.clone().requires_grad_(True)
+    e_f = ewald_fused.reciprocal_energy_fused(p1, box, q, 2.8, kmax)
+    (g_f,) = torch.autograd.grad(e_f, p1)
+    p2 = pos.clone().requires_grad_(True)
+    e_m = ewald.reciprocal_energy(p2, box, q, 2.8, kmax)
+    (g_m,) = torch.autograd.grad(e_m, p2)
+    np.testing.assert_allclose(float(e_f), float(e_m), rtol=2e-5)
+    scale = float(g_m.abs().max())
+    np.testing.assert_allclose(g_f.cpu().numpy(), g_m.cpu().numpy(),
+                               atol=3e-5 * scale, rtol=2e-4)
+
+
+def test_fused_kernels_reject_bad_input(cuda):
+    pos, box, q = _recip_system(cuda, 97, 23)
+    posp, qp, kvec, w, c0, _, kp, _ = ewald_fused._prep(pos, box, q, 2.8,
+                                                        (3, 4, 6), 32)
+    with pytest.raises(ValueError, match="posp"):
+        ewald_fused.structure_factor(posp.double(), qp, kvec)
+    with pytest.raises(ValueError, match="qp"):
+        ewald_fused.structure_factor(posp, qp.cpu(), kvec)
+    with pytest.raises(ValueError, match="ab"):
+        ewald_fused.recip_forces(posp, qp, kvec, torch.zeros(
+            (2, kp - 1), device=cuda))
+    with pytest.raises(ValueError, match="device"):
+        ewald_fused.structure_factor(posp.to("meta"), qp.to("meta"),
+                                     kvec.to("meta"))

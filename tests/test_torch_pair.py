@@ -215,7 +215,31 @@ def test_direct_space_plist_residual_pairs():
 
 
 def test_strict_pairs_refused():
-    tables, pos, box, q = _system("mol")
-    with pytest.raises(NotImplementedError, match="B2"):
-        tpp.direct_space_plist(_t(pos), _t(box), _t(q), tables, BETA, RC,
-                               128, plist_cap=64, strict=True)
+    """What the plist sweep still refuses, strict or not: folded 1-4
+    exceptions (the JAX plist branch refuses them too,
+    pallas_pair.py:1667-1670); they run in the band sweep.  strict=True
+    itself now runs, with kernel B2's full sweep on a coverage trip
+    (tests/test_torch_band.py holds it against the JAX package)."""
+    from openmm_velocityverlet_tpu.units import ONE_4PI_EPS0
+    rng = np.random.default_rng(7)
+    lj_type, a, b, excl, pos, box, q = _mol_system(96, rng)
+    n = len(lj_type)
+    idx = np.full((n, 1), -1, np.int32)
+    qq = np.zeros((n, 1), np.float32)
+    for m in range(n // 4):
+        i, j = 4 * m, 4 * m + 3
+        idx[i, 0], idx[j, 0] = j, i
+        qq[i, 0] = qq[j, 0] = ONE_4PI_EPS0 * 0.5 * q[i] * q[j]
+    tables = jap.build_pair_tables(n, lj_type, a, b, excl, exc_idx=idx,
+                                   exc_qq=qq, exc_c6=np.zeros_like(qq),
+                                   exc_c12=np.zeros_like(qq) + 1e-6,
+                                   charges=q)
+    assert tables["has_exc14"]
+    for strict in (False, True):
+        with pytest.raises(NotImplementedError, match="fold"):
+            tpp.direct_space_plist(_t(pos), _t(box), _t(q), tables, BETA, RC,
+                                   128, plist_cap=64, strict=strict)
+    plain, pos, box, q = _system("mol")
+    got = tpp.direct_space_plist(_t(pos), _t(box), _t(q), plain, BETA, RC,
+                                 128, plist_cap=64, strict=True)
+    assert isinstance(got[6], bool)

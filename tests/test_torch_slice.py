@@ -78,7 +78,8 @@ def test_force_evaluator_matches_jax(kind, jax_pallas_interpret):
     assert (js.exclusions.shape[1] > 3) == (kind == "residual")
     jf = JFE(js, pair_kernel="pallas", pallas_interpret=True, box_hint=box,
              pos_hint=pos, recip="exact")
-    tf = TFE(ps, pair_kernel="plist", box_hint=box, pos_hint=pos)
+    tf = TFE(ps, pair_kernel="plist", box_hint=box, pos_hint=pos,
+             device="cpu")
     assert (tf.pair_ts, tf.plist_sort, tf.plist_cap, tf.plist_nowrap) == (
         jf.pair_ts, jf.plist_sort, jf.plist_cap, jf.plist_nowrap)
     bj = jnp.asarray(box, jnp.float32)
@@ -107,20 +108,23 @@ def test_force_evaluator_matches_jax(kind, jax_pallas_interpret):
             assert tf.group_energies(tt).keys() == jf.group_energies(tj).keys()
 
 
-def _run(pkg, js, pos, box, vel, steps, jax_plist):
+def _run(pkg, js, pos, box, vel, steps, jax_plist, **opts):
+    """``opts`` (fold_exc14, strict_pairs, recip, pair_ts) go to both
+    packages' evaluators."""
     integ = pkg.VVIntegrator(333.0, 10.0, 1.0, 40.0, 0.001)
     integ.setMaxDrudeDistance(0.02)
     if pkg is jpkg:
         ctx = jpkg.Context(js, integ, positions=pos, box=box, recip="exact")
         if jax_plist:
-            # the TPU path: the Pallas plist kernel (interpret mode here)
+            # the TPU path: the Pallas kernels (interpret mode here)
             ctx.evaluator = JFE(js, pair_kernel="pallas",
                                 pallas_interpret=True, box_hint=box,
-                                pos_hint=pos, recip="exact")
+                                pos_hint=pos, **dict(dict(recip="exact"),
+                                                     **opts))
     else:
         ctx = tpkg.Context(system_from_numpy(js), integ, positions=pos,
                            box=box, pair_kernel="plist" if jax_plist
-                           else "dense")
+                           else "dense", device="cpu", **opts)
     ctx.set_velocities(vel)
     traj = []
     for _ in range(steps):
@@ -161,6 +165,47 @@ def test_context_trajectory_tracks_jax(path, pos_bound,
     np.testing.assert_allclose(kt, kj, rtol=1e-3)
 
 
+@pytest.mark.parametrize("path,n_mol,opts", [
+    ("band", 125, dict(fold_exc14=True, pair_ts=32)),
+    ("strict+fused", 27, dict(strict_pairs=True, recip="exact_fused"))])
+def test_context_routes_track_jax(path, n_mol, opts, jax_pallas_interpret):
+    """10 middle-scheme TGNH steps on the band route (fold_exc14=True: the
+    z-banded sweep of kernel B2, here 16 tiles of 32 atoms and the band
+    width both packages size from the start configuration) and on the
+    strict + fused route (the plist sweep with the exact fallback, and the
+    reciprocal through kernels B4/B5), each against the JAX Context with
+    the same options on its Pallas kernels in interpret mode.  Both take
+    the force-only pair form in the step, so the plist bound applies:
+    max |dpos| < 2e-5 nm per step, terms within 1e-3 relative / 0.5
+    kJ/mol, kinetic energy within 1e-3 relative."""
+    js, pos, box = drude_water_box(n_mol, None, jpkg.SystemBuilder)
+    pos = _drude_positions(pos, seed=3)
+    rng = np.random.default_rng(5)
+    vel = (rng.normal(0, 1, pos.shape) * np.sqrt(
+        0.0083144626 * 333.0 * np.asarray(js.inv_masses))[:, None]
+        ).astype(np.float32)
+    jf = JFE(js, pair_kernel="pallas", pallas_interpret=True, box_hint=box,
+             pos_hint=pos, **dict(dict(recip="exact"), **opts))
+    tf = TFE(system_from_numpy(js), box_hint=box, pos_hint=pos,
+             device="cpu", **opts)
+    assert (tf.pair_mode, tf.pair_ts, tf.band_w, tf.uses_band) == (
+        jf.pair_mode, jf.pair_ts, jf.band_w, jf.uses_band)
+    assert tf.uses_band and tf.recip_method == jf.recip_method
+    tj, ej, kj = _run(jpkg, js, pos, box, vel, 10, True, **opts)
+    tt, et, kt = _run(tpkg, js, pos, box, vel, 10, True, **opts)
+    drift = np.abs(tt - tj).max(axis=(1, 2))
+    print(f"\n[{path}] max |dpos| per step (nm): "
+          + " ".join(f"{d:.2e}" for d in drift))
+    print(f"[{path}] per-term |dE| (kJ/mol): "
+          + ", ".join(f"{k} {abs(et[k] - ej[k]):.2e}" for k in ej)
+          + f"; kinetic {abs(kt - kj):.2e}")
+    assert drift.max() < 2e-5
+    for k in ej:
+        np.testing.assert_allclose(et[k], ej[k], rtol=1e-3, atol=0.5,
+                                   err_msg=k)
+    np.testing.assert_allclose(kt, kj, rtol=1e-3)
+
+
 @pytest.mark.parametrize("bad", ["nowrap", "capacity"])
 def test_flagged_rebuild_is_refit(bad):
     """A rebuild that comes back flagged (a nowrap frame that no longer
@@ -171,7 +216,8 @@ def test_flagged_rebuild_is_refit(bad):
     js, pos, box = drude_water_box(216, None, jpkg.SystemBuilder)
     ps = system_from_numpy(js)
     integ = tpkg.VVIntegrator(333.0, 10.0, 1.0, 40.0, 0.001)
-    ctx = tpkg.Context(ps, integ, positions=_drude_positions(pos), box=box)
+    ctx = tpkg.Context(ps, integ, positions=_drude_positions(pos), box=box,
+                       device="cpu")
     ev = ctx.evaluator
     if bad == "nowrap":
         ev.plist_nowrap = (True, True, True)
@@ -188,7 +234,7 @@ def test_flagged_rebuild_is_refit(bad):
                                  pair_cache=cache)
     # against a list sized from these positions at construction
     fresh = TFE(ps, pair_kernel="plist", box_hint=box,
-                pos_hint=st.pos.numpy())
+                pos_hint=st.pos.numpy(), device="cpu")
     _, f_ref = fresh.energy_forces(st.pos, st.box, want_energy=False)
     np.testing.assert_allclose(f_list.numpy(), f_ref.numpy(),
                                rtol=F_RTOL, atol=F_ATOL)
