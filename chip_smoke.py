@@ -13,7 +13,12 @@ Phases:
      more and required bitwise equal, and timed with CUDA events:
      B1 (plist sweep) on the main path's cache; B2 (upper-triangle sweep)
      in the band, band + far, odd and even full sweeps and with folded 1-4
-     exceptions; B4/B5 (fused reciprocal) beside the matmul route;
+     exceptions; B4/B5 (fused reciprocal) beside the matmul route; B3 (the
+     rectangular sweep) through its path, direct_space_tiled(symmetric=
+     False), and against B1's sweep of the same positions; B6-B8 (gathers)
+     through their path, the gather tool's main(), then bitwise against
+     their plain versions and torch.index_select, timed on the device
+     (torch.profiler) beside the library call;
   3. path 1, the main path: Context with VVIntegrator(333, 10, 1, 40,
      0.001), setMaxDrudeDistance(0.02); step(20) warm-up, step(200) timed,
      B1 launched >= 200 times;
@@ -21,16 +26,27 @@ Phases:
      Context(strict_pairs=True, recip="exact_fused") (B1 with B2 as the
      exact fallback, B4/B5): step(20), then step(100) timed, B2 resp. B4
      and B5 launched >= 100 times;
-  5. for each path every energy term and the kinetic energy finite, a
+  5. path 4, the middle scheme with partitioned Langevin on the last
+     quarter of the molecules and an E-field of 0.5 V/nm on the cores of
+     the others (the __graft_entry__._drude_system wiring), and path 5, the
+     vanilla VV scheme (setUseMiddleScheme(False)) with cosine acceleration
+     0.02 nm/ps^2: step(20), then step(100) timed; B1 launched >= 100 times
+     on path 4 and exactly once a step on path 5 (its force carry), once
+     more after set_velocities; path 4 then steps on to 1000 steps, its
+     Langevin group's kinetic temperature over steps 500-1000 within 10% of
+     333 K; get_viscosity() finite;
+  6. for each path every energy term and the kinetic energy finite, a
      torch.profiler summary of 20 more steps (device busy time, kernels per
      step, top kernels), and a 64-molecule system stepped 10 times on the
-     card tracking the same run on the CPU (plain versions);
-  6. one JSON line {"kernels": [...]}, the card line, and as the last line
+     card tracking the same run on the CPU (plain versions; path 4 without
+     its Langevin subset, whose noise streams differ between the two);
+  7. one JSON line {"kernels": [...]}, the card line, and as the last line
      {"ok": true, "device": {...}}.
 
 Exits nonzero on any failure, without a CUDA device, or without the
 package beside it.
 """
+import functools
 import json
 import statistics
 import subprocess
@@ -62,6 +78,16 @@ PAIR_OPS = 70
 # per (atom, k) phase in csrc/ewald_fused.cu: theta 5, sincosf 2, and
 # B4 the two sums (4); B5 g = q (a cos - b sin) (4) and the three sums (6)
 B4_OPS, B5_OPS = 11, 17
+# FP32 operations per pair within the cutoff in csrc/rect_pair.cu (the
+# count is in its header: each pair from both sides, energy form)
+RECT_OPS = 73
+# path 4: the Langevin group's kinetic temperature in the frame of the
+# group's own drift (the E-field pushes the other molecules along z, which
+# drag the Langevin group into a steady drift), averaged over steps 500 to
+# 1000, within this fraction of the 333 K target.  Steps 500 on: the lattice
+# start melts and heats everything to ~500 K within 100 steps, and the OU
+# map relaxes in 1/gamma = 0.2 ps = 200 steps.
+LD_T_BAND = 0.1
 
 
 def card_line():
@@ -482,6 +508,249 @@ def recip_phase(ctx):
     return t
 
 
+def b3_phase(ctx1, system, pos):
+    """B3 through its path, direct_space_tiled(symmetric=False), at 19,500
+    atoms (each Drude 0.05 nm from its core): the launch count of that one
+    call; the kernel against its plain version on the same operands, bitwise
+    over 3 runs and timed; the path's forces and energies against B1's
+    energy sweep of the same positions (the same function)."""
+    import numpy as np
+    import torch
+    from openmm_velocityverlet_tpu_torch import ForceEvaluator
+    from openmm_velocityverlet_tpu_torch.ops import pair_plist as pp
+    from openmm_velocityverlet_tpu_torch.ops import pair_rect as pr
+    from openmm_velocityverlet_tpu_torch.ops import pair_tri as pt
+    from openmm_velocityverlet_tpu_torch.ops.pair_direct import \
+        direct_space_tiled
+    dev = torch.device(DEVICE)
+    ev = ctx1.evaluator
+    tables = ev.pair_tables
+    beta, rc = system.ewald_beta, system.r_cutoff
+    posd = torch.as_tensor(jittered_positions(pos), device=dev)
+    boxd = torch.as_tensor(np.asarray(ctx1.get_box()), dtype=torch.float32,
+                           device=dev)
+    n = posd.shape[0]
+
+    pr.rect_pair.launches = 0
+    out = direct_space_tiled(posd, boxd, system.charges, tables, beta, rc,
+                             symmetric=False)
+    torch.cuda.synchronize()
+    launches = pr.rect_pair.launches
+    print(f"[kernel] B3 path: direct_space_tiled(symmetric=False) launched "
+          f"B3 {launches} time(s)")
+    if launches != 1:
+        raise AssertionError("direct_space_tiled(symmetric=False) did not "
+                             "launch B3 once")
+
+    blk = 512                      # max(tm, tn) at the defaults
+    n_pad = pt.padded_size(n, blk)
+    st = pt.band_statics(system.charges, tables, n_pad, dev)
+    p2 = torch.cat([posd, torch.full((n_pad - n, 3), 1e6, device=dev)]
+                   ).contiguous()
+    args = (p2, st["q"], st["ab"], st["bits"], st["ljt"], st["grp"],
+            st["grows"], boxd)
+    kw = dict(n=n, t_dim=tables["arows"].shape[1], beta=beta, r_cutoff=rc,
+              r_switch=system.r_switch)
+    z = torch.zeros((8, 1), device=dev)
+    print(f"[kernel] B3: n={n} n_pad={n_pad}, "
+          f"{n_pad * n_pad / 1e6:.1f} M pair evaluations a call")
+    err, ms, plain_ms = check_pair_kernel(
+        "B3", lambda: (pr.rect_pair(*args, **kw), z),
+        lambda: (pr.rect_pair_reference(*args, **kw), z), E_RTOL,
+        cols=(3, 4, 5))
+
+    # B1's list sized for these positions: the main path's list was sized
+    # on the lattice, and on the jittered positions it would overflow
+    ev1 = ForceEvaluator(system, box_hint=np.asarray(ctx1.get_box()),
+                         pos_hint=posd.cpu().numpy(), device=DEVICE)
+    cache = ev1.make_pair_cache(posd, boxd)
+    if bool(cache.overflow):
+        raise AssertionError("B1's list sized for the B3 positions is "
+                             "flagged")
+    ref = pp.direct_space_plist(
+        posd, boxd, ev1.t.charges, ev1.pair_tables, beta, rc, ev1.pair_ts,
+        want_energy=True, cache=cache, plist_cap=ev1.plist_cap,
+        skin=ev1.skin, plist_sort=ev1.plist_sort, r_switch=system.r_switch,
+        strict=False, nowrap=ev1.plist_nowrap, statics=ev1.statics)
+    f_err = (out[5] - ref[5]).abs()
+    ok_f = bool(torch.all(f_err <= F_ATOL + F_RTOL * ref[5].abs()))
+    e_b3 = [float(x) for x in out[:3]]
+    e_b1 = [float(x) for x in ref[:3]]
+    ok_e = all(abs(a - b) <= E_ATOL + E_RTOL * abs(b)
+               for a, b in zip(e_b3, e_b1))
+    print(f"[kernel] B3 path against B1's energy sweep (list of "
+          f"{ev1.plist_cap} entries, nowrap {ev1.plist_nowrap}): max |dF| "
+          f"{float(f_err.max()):.3e} (rtol {F_RTOL} atol {F_ATOL}); "
+          f"e_lj/e_coul/e_corr B3 {e_b3} B1 {e_b1} (rtol {E_RTOL} atol "
+          f"{E_ATOL})")
+    if not (ok_f and ok_e):
+        raise AssertionError("B3's sweep disagrees with B1's")
+
+    pairs = cutoff_pairs(posd, boxd, rc)
+    fout = pr.rect_pair(*args, **kw)
+    b_ms, b_by = bound(pairs * RECT_OPS, nbytes(*args, fout))
+    print(f"[kernel] B3: {pairs / 1e6:.3f} M pairs within the cutoff; bound "
+          f"on those {b_ms:.4f} ms ({b_by}); on its own "
+          f"{n_pad * n_pad / 1e6:.1f} M evaluations "
+          f"{bound(n_pad * n_pad * RECT_OPS, 0)[0]:.4f} ms")
+    return dict(launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def device_ms(fn, calls=50):
+    """Device time of one call: the CUDA kernel time torch.profiler records
+    over ``calls`` calls (after a warm-up), divided by ``calls``.  For
+    kernels of a few microseconds, where CUDA events around one call would
+    time the host's launch gap."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type.name == "CUDA")
+    if us <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return us / 1e3 / calls
+
+
+def gather_phase():
+    """B6-B8 through their path, the gather tool's main() (launch counts of
+    that run), then each kernel bitwise against its plain version and the
+    library call (torch.index_select), bitwise over 3 runs, and its device
+    time beside theirs."""
+    import torch
+    from openmm_velocityverlet_tpu_torch.tools import exp_gather_kernel as gt
+    wrappers = {"B6": gt.gather_rows, "B7": gt.gather_lanes,
+                "B8": gt.gather_lanes_tiled}
+    for fn in wrappers.values():
+        fn.launches = 0
+    tool = gt.main(["--device", DEVICE])
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    print(f"[kernel] gather tool main(): launches {launches}; us/call "
+          f"{ {k: round(v[0], 2) for k, v in tool.items()} }")
+    if any(v < 1 for v in launches.values()):
+        raise AssertionError("the gather tool did not launch every kernel")
+    cases = {
+        "B6": (gt.variant_sublane, gt.gather_rows_reference,
+               lambda blk, idx: torch.index_select(blk, 0, idx[:, 0])),
+        "B7": (gt.variant_lane, gt.gather_lanes_reference,
+               lambda blk, idx: torch.index_select(blk, 1, idx[0])),
+        "B8": (gt.variant_lane_tiled, gt.gather_lanes_tiled_reference,
+               lambda blk, idx: torch.index_select(blk, 1, idx[0] % 128))}
+    res = {}
+    for key, (variant, plain, library) in cases.items():
+        fn, (blk, idx) = variant(DEVICE)
+        out = fn(blk, idx)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, plain(blk, idx))
+                and torch.equal(out, library(blk, idx))
+                and all(torch.equal(fn(blk, idx), out) for _ in range(2))):
+            raise AssertionError(f"{key}: the gather kernel is not bitwise "
+                                 f"equal to its plain version, the library "
+                                 f"call and itself")
+        ms = device_ms(lambda: fn(blk, idx))
+        plain_ms = device_ms(lambda: plain(blk, idx))
+        library_ms = device_ms(lambda: library(blk, idx))
+        # of the block, the function reads only the rows (B6) or lanes (B7,
+        # B8: idx % 128) that this run's indices name
+        used = torch.unique(idx % 128 if key == "B8" else idx).numel()
+        blk_bytes = used * blk.shape[1 if key == "B6" else 0] \
+            * blk.element_size()
+        n_bytes = blk_bytes + nbytes(idx, out)
+        b_ms, b_by = bound(0, n_bytes)
+        print(f"[kernel] {key} ({fn.__name__}): bitwise equal to its plain "
+              f"version, torch.index_select and itself over 3 runs; device "
+              f"time kernel {ms:.5f} ms, plain {plain_ms:.5f}, library "
+              f"{library_ms:.5f}; bound {b_ms:.5f} ms ({b_by}, "
+              f"{n_bytes / 1e6:.3f} MB: {used} of the block's "
+              f"{blk.shape[0 if key == 'B6' else 1]} "
+              f"{'rows' if key == 'B6' else 'lanes'} read)")
+        res[key] = dict(name=fn.__name__, launches=launches[key],
+                        max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                        tool_us_per_call=[v[0] for k, v in tool.items()
+                                          if f"({key})" in k][0])
+    return res
+
+
+def langevin_temperatures(ctx):
+    """(T, drift, T_rel) of the Langevin group: T in K of its atomic motion
+    in the frame of the group's mass-weighted mean velocity ``drift``
+    (nm/ps), from the kinetic energy of the Drude pairs' centres of mass and
+    of the normal particles over their degrees of freedom less the
+    constraints inside the group and the 3 of the drift; T_rel in K of the
+    pairs' relative motion, over 3 per pair."""
+    import numpy as np
+    from openmm_velocityverlet_tpu_torch.units import BOLTZ
+    d = ctx.data
+    m = np.asarray(ctx.system.masses, np.float64)
+    v = ctx.get_velocities().astype(np.float64)
+    pairs, normal = np.asarray(d.ld_pairs), np.asarray(d.ld_normal)
+    group = np.zeros(len(m), bool)
+    group[pairs.reshape(-1)] = True
+    group[normal] = True
+    drift = (m[group, None] * v[group]).sum(0) / m[group].sum()
+    i, j = pairs[:, 0], pairs[:, 1]
+    mp = m[i] + m[j]
+    vcm = (m[i, None] * v[i] + m[j, None] * v[j]) / mp[:, None] - drift
+    ke = 0.5 * np.sum(mp[:, None] * vcm ** 2) \
+        + 0.5 * np.sum(m[normal, None] * (v[normal] - drift) ** 2)
+    cons = np.asarray(ctx.system.constraints).reshape(-1, 2)
+    n_cons = int(np.sum(group[cons[:, 0]] & group[cons[:, 1]]))
+    dof = 3 * (len(pairs) + len(normal)) - n_cons - 3
+    mu = m[i] * m[j] / mp
+    ke_rel = 0.5 * np.sum(mu[:, None] * (v[i] - v[j]) ** 2)
+    return (2 * ke / (dof * BOLTZ), drift,
+            2 * ke_rel / (3 * len(pairs) * BOLTZ))
+
+
+def langevin_gate(ctx):
+    """Path 4's thermostat check: steps on to 1000 in all, sampling the
+    Langevin group's temperature every 50 steps from step 500; the mean of
+    the samples must lie within LD_T_BAND of 333 K."""
+    import numpy as np
+    samples = []
+    while ctx.current_step < 1000:
+        ctx.step(500 - ctx.current_step if ctx.current_step < 500 else 50)
+        if ctx.current_step >= 500:
+            samples.append(langevin_temperatures(ctx))
+    t_mean = float(np.mean([s[0] for s in samples]))
+    t_rel = float(np.mean([s[2] for s in samples]))
+    print(f"[langevin+efield] Langevin group, steps 500-1000 ("
+          f"{len(samples)} samples): {t_mean:.2f} K in its drift frame "
+          f"(band 333 K +- {LD_T_BAND:.0%}; samples "
+          f"{[round(float(s[0]), 1) for s in samples]}), drift "
+          f"{np.round(samples[-1][1], 4).tolist()} nm/ps, its Drude pairs' "
+          f"relative motion {t_rel:.3f} K")
+    if not abs(t_mean - 333.0) <= LD_T_BAND * 333.0:
+        raise AssertionError("the Langevin group's temperature left its "
+                             "band")
+    check_finite("langevin+efield", ctx, ctx.system)
+
+
+def vv_carry_gate(ctx, counters):
+    """Path 5's force carry: after set_velocities the next step evaluates
+    forces twice (the invalidated carry and the step's own), then once a
+    step again."""
+    import torch
+    for fn in counters.values():
+        fn.launches = 0
+    ctx.set_velocities(ctx.get_velocities())
+    ctx.step(1)
+    first = counters["B1"].launches
+    ctx.step(2)
+    torch.cuda.synchronize()
+    print(f"[vv+cos] after set_velocities: step(1) launched B1 {first} "
+          f"times, the next step(2) {counters['B1'].launches - first}")
+    if first != 2 or counters["B1"].launches - first != 2:
+        raise AssertionError("the VV force carry launched B1 other than "
+                             "once a step plus once after set_velocities")
+
+
 def check_finite(tag, ctx, system):
     import numpy as np
     terms = ctx.potential_energy_terms()
@@ -615,9 +884,32 @@ def profile(tag, ctx, step_ms, top=12):
               f"ms/step {e.count / 20:6.1f}/step  {e.key[:90]}")
 
 
-def small_agreement(tag, **opts):
+def wire_path4(integ, n_mol, langevin=True):
+    """The __graft_entry__._drude_system wiring (:58-66): partitioned
+    Langevin on the last quarter of the molecules, an E-field of 0.5 V/nm on
+    the cores of the others.  ``langevin=False`` leaves out the Langevin
+    subset, whose noise streams differ between the card and the CPU."""
+    n_ld = n_mol // 4
+    if langevin:
+        for m in range(n_mol - n_ld, n_mol):
+            for k in range(4):
+                integ.addParticleLangevin(4 * m + k)
+    for m in range(n_mol - n_ld):
+        integ.addParticleElectrolyte(4 * m)
+    integ.setElectricField(0.5)
+
+
+def wire_path5(integ, n_mol):
+    """The vanilla VV scheme with cosine acceleration 0.02 nm/ps^2
+    (README "--cos 0.02")."""
+    integ.setUseMiddleScheme(False)
+    integ.setCosAcceleration(0.02)
+
+
+def small_agreement(tag, wire=None, **opts):
     """A 64-molecule system, 10 steps on the card against the CPU run of
-    the same code (plain versions): positions and energy terms agree."""
+    the same code (plain versions): positions and energy terms agree.
+    ``wire(integ, n_mol)`` sets integrator features."""
     import numpy as np
     from openmm_velocityverlet_tpu_torch import Context, VVIntegrator
     from openmm_velocityverlet_tpu_torch.models.drude_water import \
@@ -630,6 +922,8 @@ def small_agreement(tag, **opts):
     for dev in ("cpu", DEVICE):
         integ = VVIntegrator(333, 10, 1, 40, 0.001)
         integ.setMaxDrudeDistance(0.02)
+        if wire is not None:
+            wire(integ, 64)
         ctx = Context(system, integ, positions=pos, box=box, device=dev,
                       **opts)
         ctx.set_velocities(vel)
@@ -645,6 +939,7 @@ def small_agreement(tag, **opts):
 
 
 def main():
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -671,9 +966,11 @@ def main():
     t0 = time.perf_counter()
     system, pos, box = drude_water_box(N_MOL, r_cutoff=R_CUTOFF)
 
-    def context(**opts):
+    def context(wire=None, **opts):
         integ = VVIntegrator(333, 10, 1, 40, 0.001)
         integ.setMaxDrudeDistance(0.02)
+        if wire is not None:
+            wire(integ, N_MOL)
         ctx = Context(system, integ, positions=pos, box=box, device=DEVICE,
                       **opts)
         ctx.set_velocities_to_temperature(333.0)
@@ -687,6 +984,8 @@ def main():
     b1, b1_bound, b1_by = b1_phase(ctx1)
     b2 = b2_phase(ctx1, system, pos)
     rc = recip_phase(ctx1)
+    b3 = b3_phase(ctx1, system, pos)
+    gat = gather_phase()
 
     # path 1: the main path
     sps1, el1, l1 = drive("slice", ctx1, 200, {"B1": pp.plist_pair}, card,
@@ -721,11 +1020,43 @@ def main():
     strict_trip(ctx3, {"B1": pp.plist_pair, "B2 fallback": pt.tri_pair})
     check_finite("strict+fused", ctx3, system)
 
+    # path 4: partitioned Langevin and the E-field (middle scheme)
+    ctx4, _ = context(wire=wire_path4)
+    print(f"[langevin+efield] {ctx4.data.ld_pairs.shape[0]} Langevin Drude "
+          f"pairs, {ctx4.data.ld_normal.shape[0]} Langevin particles, "
+          f"{ctx4.data.electrolyte.shape[0]} E-field particles")
+    _, el4, l4 = drive("langevin+efield", ctx4, 100, {"B1": pp.plist_pair},
+                       card, dt)
+    if l4["B1"] < 100:
+        raise AssertionError(f"B1 launched {l4['B1']} < 100 times")
+    check_finite("langevin+efield", ctx4, system)
+    profile("path 4", ctx4, el4 / 100 * 1e3, top=6)
+    langevin_gate(ctx4)
+
+    # path 5: the vanilla VV scheme with cosine acceleration
+    ctx5, _ = context(wire=wire_path5)
+    _, el5, l5 = drive("vv+cos", ctx5, 100, {"B1": pp.plist_pair}, card, dt)
+    if l5["B1"] != 100:
+        raise AssertionError(f"B1 launched {l5['B1']} times in 100 VV steps "
+                             f"with a valid force carry (expected 100)")
+    check_finite("vv+cos", ctx5, system)
+    v_max, inv_vis = ctx5.get_viscosity()
+    print(f"[vv+cos] get_viscosity: vMax {v_max:.6e} nm/ps, 1/viscosity "
+          f"{inv_vis:.6e} 1/(Pa s)")
+    if not (np.isfinite(v_max) and np.isfinite(inv_vis)):
+        raise AssertionError("get_viscosity() is not finite")
+    profile("path 5", ctx5, el5 / 100 * 1e3, top=6)
+    vv_carry_gate(ctx5, {"B1": pp.plist_pair})
+
     small_agreement("path 1")
     small_agreement("path 2 (fold_exc14, pair_ts 32)", fold_exc14=True,
                     pair_ts=32)
     small_agreement("path 3 (strict_pairs, exact_fused)", strict_pairs=True,
                     recip="exact_fused")
+    small_agreement("path 4 without its Langevin subset (E-field)",
+                    wire=functools.partial(wire_path4, langevin=False))
+    small_agreement("path 5 (vanilla VV, cosine acceleration)",
+                    wire=wire_path5)
 
     f, e = b1["force"], b1["energy"]
     src = "openmm_velocityverlet_tpu_torch/csrc/"
@@ -757,7 +1088,22 @@ def main():
          "replaces": ref + "ewald_pallas.py:99", "launches": l3["B5"],
          "max_abs_err": rc["b5_err"], "ms": rc["b5"],
          "plain_ms": rc["b5_plain"], "bound_ms": rc["b5_bound"][0],
-         "bound_by": rc["b5_bound"][1], "library_ms": None}]}))
+         "bound_by": rc["b5_bound"][1], "library_ms": None},
+        {"name": "rect_pair", "route": "cuda", "source": src + "rect_pair.cu",
+         "replaces": ref + "pallas_pair.py:454", "launches": b3["launches"],
+         "max_abs_err": b3["max_abs_err"], "ms": b3["ms"],
+         "plain_ms": b3["plain_ms"], "bound_ms": b3["bound_ms"],
+         "bound_by": b3["bound_by"], "library_ms": None,
+         "library_ms_why": "no single PyTorch call computes the sweep"}]
+        + [{"name": g["name"], "route": "cuda", "source": src + "gather.cu",
+            "replaces": "tools/exp_gather_kernel.py:" + line,
+            "launches": g["launches"], "max_abs_err": g["max_abs_err"],
+            "ms": g["ms"], "plain_ms": g["plain_ms"],
+            "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
+            "library_ms": g["library_ms"],
+            "tool_us_per_call": g["tool_us_per_call"]}
+           for g, line in ((gat["B6"], "39"), (gat["B7"], "59"),
+                           (gat["B8"], "80"))]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,10 +2,13 @@
 ``openmm_velocityverlet_tpu``.
 
 Module names and layout follow the JAX package, which stays the reference.
-The port carries the middle-scheme TGNH step; its hand-written CUDA kernels
-for Hopper are B1, the plist pair sweep (``csrc/plist_pair.cu``), B2, the
-upper-triangle band / full sweep (``csrc/tri_pair.cu``), and B4/B5, the
-fused exact-k reciprocal (``csrc/ewald_fused.cu``), each with a plain torch
+The port carries the middle and vanilla VV schemes with the TGNH and
+partitioned Langevin thermostats, the E-field and cosine acceleration.
+Its hand-written CUDA kernels for Hopper are B1, the plist pair sweep
+(``csrc/plist_pair.cu``), B2, the upper-triangle band / full sweep
+(``csrc/tri_pair.cu``), B3, the rectangular sweep (``csrc/rect_pair.cu``),
+B4/B5, the fused exact-k reciprocal (``csrc/ewald_fused.cu``), and B6-B8,
+the gathers of the gather tool (``csrc/gather.cu``), each with a plain torch
 version for CPU tensors.  Entry points run on the card unless given
 ``device="cpu"``.  The package imports torch and numpy, never jax.
 """

@@ -1,20 +1,23 @@
-"""The per-step physics of the middle-scheme integrator as functions on
-tensors (counterpart of ``openmm_velocityverlet_tpu/integrators/
-stepping.py``, the TGNH path: kinetic energy, molecular COM velocities,
-``nh_scale_velocities``, the Drude hard wall, the image sync and the
-compensated position update).
+"""The per-step physics of the VV / middle-scheme integrator as functions
+on tensors (counterpart of ``openmm_velocityverlet_tpu/integrators/
+stepping.py``: kinetic energy, molecular COM velocities,
+``nh_scale_velocities``, the partitioned Langevin thermostat, the E-field
+and cosine-acceleration extra forces with the velocity bias and viscosity,
+the Drude hard wall, the image sync and the compensated position update).
 
 The JAX version embeds its static masks and mass ratios as compile-time
-constants; here ``thermostat_tables`` and ``hardwall_tables`` upload them
-once per context, so a step makes no host-to-device copy.  Langevin, the
-E-field and cosine acceleration are not ported yet (ROADMAP A10).
+constants; here ``thermostat_tables``, ``langevin_tables`` and
+``hardwall_tables`` upload them once per context, so a step makes no
+host-to-device copy.  The Langevin functions take their normal draws as
+tensors (the JAX ones draw from a threefry key), so a test can hand both
+packages the same numbers.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..units import BOLTZ
+from ..units import AVOGADRO, BOLTZ, PI
 from .nhchain import propagate_nh_chains
 from .vv import TG_ATOM, TG_COM, TG_DRUDE, IntegratorData
 
@@ -236,6 +239,165 @@ def nh_scale_velocities(vel, data: IntegratorData, tables, nh_eta,
             + com_term
         new_vel = torch.where(t["in_pair"], upd, new_vel)
     return new_vel, eta, eta_dot, eta_dotdot, ke2
+
+
+# ------------------------------------------------------------ Langevin
+def langevin_tables(system, data: IntegratorData, device):
+    """Device constants of the partitioned Langevin thermostat (the
+    ``ld_normal`` particles and the ``ld_pairs`` Drude pairs), or None when
+    no particle is on it.  The coefficients are computed in numpy exactly as
+    the JAX functions compute their compile-time constants."""
+    n_normal, n_pairs = data.ld_normal.shape[0], data.ld_pairs.shape[0]
+    if n_normal + n_pairs == 0:
+        return None
+    n = system.n_atoms
+    dt = data.dt
+    masses_np = np.asarray(system.masses)
+
+    def T(a, dtype=np.float32):
+        return torch.as_tensor(np.asarray(a).astype(dtype), device=device)
+
+    t = dict(n=n, n_normal=n_normal, n_pairs=n_pairs)
+    # langevin_extra_force: dragFactor gamma, randFactor sqrt(2 kB T gamma
+    # / dt), as float32 scalars
+    t["drag"], t["drag_d"] = data.friction, data.drude_friction
+    t["rand"] = float(np.sqrt(np.float32(
+        2.0 * BOLTZ * data.temperature * data.friction / dt)))
+    t["rand_d"] = float(np.sqrt(np.float32(
+        2.0 * BOLTZ * data.drude_temperature * data.drude_friction / dt)))
+    if n_normal:
+        norm_mask = np.zeros(n, bool)
+        norm_mask[np.asarray(data.ld_normal)] = True
+        c1 = float(np.exp(-data.friction * dt))
+        sig = np.where(masses_np > 0,
+                       np.sqrt(BOLTZ * data.temperature
+                               / np.maximum(masses_np, 1e-30)
+                               * (1.0 - c1 * c1)), 0.0).astype(np.float32)
+        idx = np.asarray(data.ld_normal)
+        m = masses_np[idx][:, None]
+        t.update(norm_mask=T(norm_mask, bool)[:, None], c1=c1,
+                 sig=T(sig)[:, None], idx=T(idx, np.int64), m=T(m),
+                 sqrt_m=T(np.sqrt(m)))
+    if n_pairs:
+        partner, psign, lowid, in_pair = _pair_atom_tables(data.ld_pairs, n)
+        mp = masses_np[partner]
+        mtot = np.maximum(masses_np + mp, 1e-30)
+        mu = np.maximum(masses_np * mp / mtot, 1e-30)
+        c1c = float(np.exp(-data.friction * dt))
+        c1r = float(np.exp(-data.drude_friction * dt))
+        d, p = data.ld_pairs[:, 0], data.ld_pairs[:, 1]
+        m1, m2 = masses_np[d], masses_np[p]
+        pm_tot = (m1 + m2)[:, None]
+        pmu = (m1 * m2 / (m1 + m2))[:, None]
+        t.update(
+            partner=T(partner, np.int64), psign=T(psign)[:, None],
+            lowid=T(lowid, np.int64), in_pair=T(in_pair, bool)[:, None],
+            fself=T(masses_np / mtot)[:, None], fpart=T(mp / mtot)[:, None],
+            c1c=c1c, c1r=c1r,
+            sig_cm=T(np.sqrt(BOLTZ * data.temperature / mtot
+                             * (1.0 - c1c * c1c)))[:, None],
+            sig_rel=T(np.sqrt(BOLTZ * data.drude_temperature / mu
+                              * (1.0 - c1r * c1r)))[:, None],
+            d=T(d, np.int64), p=T(p, np.int64), pm_tot=T(pm_tot),
+            pmu=T(pmu), f1=T(m1[:, None] / pm_tot), f2=T(m2[:, None] / pm_tot),
+            sqrt_mtot=T(np.sqrt(pm_tot)), sqrt_mu=T(np.sqrt(pmu)))
+    return t
+
+
+def langevin_ou_update(vel, tables, xi_n, xi_p):
+    """Exact Ornstein-Uhlenbeck velocity update of the Langevin particles
+    (the middle-scheme form of the JAX ``langevin_ou_update``):
+    v <- c1 v + sqrt(kT/m (1 - c1^2)) xi with c1 = exp(-gamma dt), applied
+    to normal particles at T, to each Drude pair's centre of mass at T and
+    to its relative motion at T_drude.
+
+    The normal draws come in as tensors, in the JAX shapes and draw order:
+    ``xi_n`` (n, 3) for the normal particles (draws of other atoms are
+    discarded by the mask) and ``xi_p`` (n, 2, 3) for the pairs, read at
+    each pair's lower index so both members share one draw."""
+    t = tables
+    if t["n_normal"]:
+        vel = torch.where(t["norm_mask"], t["c1"] * vel + t["sig"] * xi_n,
+                          vel)
+    if t["n_pairs"]:
+        psign, fpart = t["psign"], t["fpart"]
+        vp = vel[t["partner"]]
+        cm = t["fself"] * vel + fpart * vp
+        rel = psign * (vel - vp)
+        xi = xi_p[t["lowid"]]
+        cm = t["c1c"] * cm + t["sig_cm"] * xi[:, 0]
+        rel = t["c1r"] * rel + t["sig_rel"] * xi[:, 1]
+        vel = torch.where(t["in_pair"], cm + psign * fpart * rel, vel)
+    return vel
+
+
+def langevin_extra_force(vel, tables, xi_n, xi_p):
+    """Partitioned Langevin drag and noise as an extra force
+    (addExtraForceDrudeLangevin, drudeLangevin.cu:2-60; the vanilla VV
+    scheme's form).  Draws as in the JAX function: ``xi_n`` (Ln, 3) for the
+    normal particles, ``xi_p`` (Lp, 2, 3) for the pairs' centre-of-mass and
+    relative motion."""
+    t = tables
+    f = torch.zeros_like(vel)
+    drag, rand = t["drag"], t["rand"]
+    if t["n_normal"]:
+        idx, m = t["idx"], t["m"]
+        f = f.index_add(0, idx, -drag * m * vel[idx] + rand * t["sqrt_m"]
+                        * xi_n)
+    if t["n_pairs"]:
+        d, p, f1, f2 = t["d"], t["p"], t["f1"], t["f2"]
+        cm = vel[d] * f1 + vel[p] * f2
+        rel = vel[p] - vel[d]
+        cm_f = -drag * t["pm_tot"] * cm + rand * t["sqrt_mtot"] * xi_p[:, 0]
+        rel_f = -t["drag_d"] * t["pmu"] * rel \
+            + t["rand_d"] * t["sqrt_mu"] * xi_p[:, 1]
+        f = f.index_add(0, d, f1 * cm_f - rel_f)
+        f = f.index_add(0, p, f2 * cm_f + rel_f)
+    return f
+
+
+# --------------------------------------------------------- extra "forces"
+def efield_extra_force(charges, data: IntegratorData):
+    """q E on the electrolyte particles along z (electricField.cu:2-12), a
+    host numpy (N,) constant; efscale = field * AVOGADRO converts
+    kJ/(nm e) -> kJ/(mol nm e) (CudaVVKernels.cpp:978)."""
+    efscale = data.electric_field * AVOGADRO
+    n = charges.shape[0]
+    mask = np.zeros(n, np.float32)
+    mask[np.asarray(data.electrolyte)] = 1.0
+    return efscale * np.asarray(charges) * mask
+
+
+def _cos_z(pos, box):
+    return torch.cos(2.0 * PI * pos[:, 2] / box[2])
+
+
+def cos_extra_force(pos, masses, box, acceleration):
+    """F_x = m a cos(2 pi z / Lz) (cosineAccelerate.cu:2-14)."""
+    return masses * acceleration * _cos_z(pos, box)
+
+
+def cos_velocity_bias(pos, vel, masses, box):
+    """V = sum_i m_i v_xi 2 cos(2 pi z_i/Lz) / M_total, a device scalar
+    (calcPeriodicVelocityBias + sumV, cosineAccelerate.cu:16-61)."""
+    return torch.sum(masses * vel[:, 0] * 2.0 * _cos_z(pos, box)) \
+        / torch.sum(masses)
+
+
+def cos_shift_velocity(pos, vel, box, v_amp, sign):
+    """v_x -> v_x + sign V cos(2 pi z/Lz) (remove: sign=-1, restore: +1)."""
+    vx = vel[:, 0] + sign * v_amp * _cos_z(pos, box)
+    return torch.stack([vx, vel[:, 1], vel[:, 2]], dim=1)
+
+
+def inverse_viscosity(v_amp, box, masses, acceleration):
+    """1/eta = V vol/(M_total a) (2 pi/Lz)^2 in MD units
+    (calcViscosity, CudaVVKernels.cpp:1112-1134); times 6.02214076e5 it is
+    in 1/(Pa s) (velocityverletplugin.i:75-79)."""
+    vol = box[0] * box[1] * box[2]
+    inv_mass_total = 1.0 / torch.sum(masses)
+    return (v_amp * vol * inv_mass_total / acceleration
+            * (2.0 * PI / box[2]) ** 2)
 
 
 # ------------------------------------------------------------- hard wall

@@ -1,0 +1,2 @@
+"""Command-line tools of the port (counterparts of the JAX package's
+``tools/`` scripts), each run with ``python -m``."""

@@ -2,7 +2,10 @@
 B1 (csrc/plist_pair.cu) for every tile size the ForceEvaluator can choose
 and both specializations; B2 (csrc/tri_pair.cu) in every tile-pair
 enumeration x specialization x 1-4 folding x interaction groups; B4/B5
-(csrc/ewald_fused.cu) forward, backward and through autograd.  A CUDA
+(csrc/ewald_fused.cu) forward, backward and through autograd; B3
+(csrc/rect_pair.cu) at two tile shapes with and without interaction groups;
+B6-B8 (csrc/gather.cu) bitwise against their plain versions and against
+torch.index_select.  A CUDA
 kernel has no CPU mode, so these tests skip on a machine without a card;
 chip_smoke.py runs the same comparisons at the main path's shapes.
 
@@ -17,7 +20,8 @@ import torch
 
 from openmm_velocityverlet_tpu_torch.ops import (allpairs, ewald,
                                                  ewald_fused, pair_plist,
-                                                 pair_tri)
+                                                 pair_rect, pair_tri)
+from openmm_velocityverlet_tpu_torch.tools import exp_gather_kernel as gtool
 from openmm_velocityverlet_tpu_torch.units import ONE_4PI_EPS0
 
 pytestmark = pytest.mark.cuda
@@ -306,3 +310,102 @@ def test_fused_kernels_reject_bad_input(cuda):
     with pytest.raises(ValueError, match="device"):
         ewald_fused.structure_factor(posp.to("meta"), qp.to("meta"),
                                      kvec.to("meta"))
+
+
+# ------------------------------------------------------------- kernel B3
+def _rect_setup(dev, blk, groups, r_switch=0.0):
+    """The grid molecular system (23 layers: 1,472 atoms, so both tile
+    shapes pad) in the unsorted layout padded to ``blk``, with each
+    molecule's atoms on a tetrahedron of 0.06 nm radius: B3 has only the
+    energy form, whose excluded-pair force cancels in float32 as r -> 0
+    (ROADMAP C; 0.4 kJ/mol/nm of rounding at ~0.01 nm in the plain version
+    alone, against float64), so near-coincident members would compare
+    rounding noise."""
+    rng = np.random.default_rng(17)
+    lj_type, a, b, excl, pos, box, q = _grid_mol_system(rng, nz=23, lz=11.5)
+    n = len(lj_type)
+    tet = np.array([[1, 1, 1], [1, -1, -1], [-1, 1, -1], [-1, -1, 1]],
+                   np.float64) * (0.06 / np.sqrt(3.0))
+    centers = pos.reshape(-1, 4, 3).mean(axis=1)
+    pos = (centers[:, None, :] + tet[None]).reshape(-1, 3) \
+        + rng.normal(0, 0.005, (n, 3))
+    lj_group = rng.integers(0, 2, n) if groups else None
+    allowed = np.array([[True, True], [True, False]]) if groups else None
+    tables = allpairs.build_pair_tables(n, lj_type, a, b, excl, lj_group,
+                                        allowed, fold_exc14=False)
+    n_pad = pair_tri.padded_size(n, blk)
+    st = pair_tri.band_statics(q, tables, n_pad, dev)
+    pos2d = torch.cat([torch.as_tensor(pos, dtype=torch.float32, device=dev),
+                       torch.full((n_pad - n, 3), 1e6, device=dev)])
+    args = (pos2d.contiguous(), st["q"], st["ab"], st["bits"], st["ljt"],
+            st["grp"], st["grows"],
+            torch.as_tensor(box, dtype=torch.float32, device=dev))
+    kw = dict(n=n, t_dim=tables["arows"].shape[1], beta=BETA, r_cutoff=RC,
+              r_switch=r_switch)
+    return args, kw
+
+
+@pytest.mark.parametrize("tm,tn", [(128, 128), (256, 512)])
+@pytest.mark.parametrize("groups,r_switch", [(False, 0.0), (True, 0.9)])
+def test_rect_kernel_matches_plain(cuda, tm, tn, groups, r_switch):
+    args, kw = _rect_setup(cuda, max(tm, tn), groups, r_switch)
+    assert args[0].shape[0] > kw["n"]
+    before = pair_rect.rect_pair.launches
+    out = pair_rect.rect_pair(*args, **kw)
+    assert pair_rect.rect_pair.launches == before + 1
+    ref = pair_rect.rect_pair_reference(*args, **kw)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(out[:, :3].cpu().numpy(),
+                               ref[:, :3].cpu().numpy(), rtol=1e-3, atol=5e-2)
+    for c in (3, 4, 5):
+        np.testing.assert_allclose(float(out[:, c].double().sum()),
+                                   float(ref[:, c].double().sum()),
+                                   rtol=2e-5, atol=0.05, err_msg=f"col {c}")
+    assert not out[kw["n"]:].any() and not out[:, 6:].any()
+    # the source documents B3 as bitwise deterministic run to run
+    for _ in range(2):
+        assert torch.equal(pair_rect.rect_pair(*args, **kw), out)
+
+
+def test_rect_kernel_rejects_bad_input(cuda):
+    args, kw = _rect_setup(cuda, 128, False)
+    for k, bad in ((0, args[0].double()), (1, args[1].cpu()),
+                   (3, args[3][:-1])):
+        wrong = list(args)
+        wrong[k] = bad
+        with pytest.raises(ValueError):
+            pair_rect.rect_pair(*wrong, **kw)
+    with pytest.raises(ValueError, match="real atoms"):
+        pair_rect.rect_pair(*args, **dict(kw, n=args[0].shape[0] + 1))
+
+
+# ---------------------------------------------------------- kernels B6-B8
+@pytest.mark.parametrize("variant,plain,library", [
+    ("variant_sublane", gtool.gather_rows_reference,
+     lambda blk, idx: torch.index_select(blk, 0, idx[:, 0])),
+    ("variant_lane", gtool.gather_lanes_reference,
+     lambda blk, idx: torch.index_select(blk, 1, idx[0])),
+    ("variant_lane_tiled", gtool.gather_lanes_tiled_reference,
+     lambda blk, idx: torch.index_select(blk, 1, idx[0] % 128))])
+def test_gather_kernels_match_plain(cuda, variant, plain, library):
+    fn, (blk, idx) = getattr(gtool, variant)(device=cuda)
+    before = fn.launches
+    out = fn(blk, idx)
+    assert fn.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain(blk, idx))
+    assert torch.equal(out, library(blk, idx))
+    assert torch.equal(fn(blk, idx), out)
+
+
+def test_gather_kernels_reject_bad_input(cuda):
+    fn, (blk, idx) = gtool.variant_sublane(device=cuda)
+    with pytest.raises(ValueError, match="idx"):
+        gtool.gather_rows(blk, idx.long())
+    with pytest.raises(ValueError, match="blk"):
+        gtool.gather_rows(blk.t(), idx)
+    fn, (blk, idx) = gtool.variant_lane(device=cuda)
+    with pytest.raises(ValueError, match="idx"):
+        gtool.gather_lanes(blk, idx[:, :-1].t())
+    with pytest.raises(RuntimeError, match="launch failed"):
+        gtool.gather_lanes_tiled(blk[:, :64].contiguous(), idx)
