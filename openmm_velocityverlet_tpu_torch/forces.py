@@ -32,6 +32,17 @@ from .ops import (allpairs, ewald, ewald_fused, mol_terms, nonbonded,
 from .system import System, resolve_device
 
 
+# tile sizes the plist evaluator chooses from (kernel B1 takes any multiple
+# of 32 up to 384 through ``pair_ts``), and the cost of one list slot (a row
+# x column place of an entry's ts x ts) in pair evaluations: kernel B1 tests
+# every 32 x 32 chunk of slots against the cutoff and evaluates only the
+# columns in reach, and its device time at 19,500 atoms on an NVIDIA H100
+# 80GB HBM3 (700 W) fits a x evaluations + b x slots + c with b / a as
+# below (chip_smoke.py's tile-size sweep prints the fit)
+PLIST_TILE_SIZES = (32, 64, 128, 256)
+PLIST_SLOT_COST = 0.6
+
+
 def _drop_constraint_null_terms(system):
     """System copy with constraint-null spring terms removed, or None if
     there are none.
@@ -179,20 +190,30 @@ class ForceEvaluator:
                     best = (cost, cand)
             self.pair_ts = best[1]
         else:
-            # jointly pick sort key and tile size minimising (pair slots +
-            # per-entry overhead) from the exact candidate enumeration of
-            # the initial configuration
-            best = (0, 256, "morton")
+            # jointly pick sort key and tile size minimising kernel B1's
+            # cost on the initial configuration: the pair evaluations left
+            # by its column skip (a host-side model of the skip over the
+            # exact candidate enumeration) plus PLIST_SLOT_COST for every
+            # slot of the list.  The constant was measured on the card, not
+            # carried over from the TPU kernel's slots + 6000 an entry,
+            # where a tile was a multiple of 128 lanes and an entry a grid
+            # step.  Candidates go by ascending slot count, and one whose
+            # slots alone cost more than the best so far is not modelled.
+            best = (0, 32, "morton")
             if have_hint:
+                slots = sorted(
+                    (pair_plist.count_candidates_np(
+                        pos_hint, box_hint, cand, rc_cand, mode=key,
+                        inert=self._inert_mask) * cand * cand, cand, key)
+                    for key in ("z", "morton") for cand in PLIST_TILE_SIZES)
                 best = None
-                for key in ("z", "morton"):
-                    for cand in (128, 256, 384):
-                        cnt = pair_plist.count_candidates_np(
-                            pos_hint, box_hint, cand, rc_cand, mode=key,
-                            inert=self._inert_mask)
-                        cost = cnt * (cand * cand + 6000)
-                        if best is None or cost < best[0]:
-                            best = (cost, cand, key)
+                for n_slots, cand, key in slots:
+                    if best is not None \
+                            and PLIST_SLOT_COST * n_slots >= best[0]:
+                        break
+                    cost = self._plist_cost(pos_hint, box_hint, cand, key)[0]
+                    if best is None or cost < best[0]:
+                        best = (cost, cand, key)
             self.pair_ts = best[1]
             self.plist_sort = best[2]
         self.band_w = (int(np.ceil(band_atoms / self.pair_ts))
@@ -288,29 +309,42 @@ class ForceEvaluator:
             inert=self._inert_mask, nowrap=self.plist_nowrap,
             statics=self.statics)
 
+    def _plist_cost(self, pos, box, ts, key):
+        """(cost, entries) of kernel B1 over a list of tile size ``ts``
+        sorted by ``key`` on this configuration: the modelled pair
+        evaluations after its column skip plus PLIST_SLOT_COST a slot."""
+        entries, evals = pair_plist.count_evaluations_np(
+            pos, box, ts, self.system.r_cutoff + self.skin,
+            self.system.r_cutoff, mode=key, inert=self._inert_mask)
+        return evals + PLIST_SLOT_COST * entries * ts * ts, entries
+
     def refit_pair_list(self, pos_raw, box) -> str:
         """Re-size the pair list from the current configuration after a
-        rebuild came back flagged: re-choose the nowrap axes (their frame
-        budget no longer holds once a lattice start has melted) and grow
-        the capacity if the candidates outgrew it.  The JAX package keeps
-        both fixed from construction and runs the flagged list anyway
-        (ROADMAP C).  Returns a note of what changed."""
+        rebuild came back flagged: re-choose the sort key (a lattice start
+        favours the z sort, whose tiles become slabs across the box once it
+        has melted) and the nowrap axes (their frame budget no longer holds
+        either), and grow the capacity if the candidates outgrew it.  The
+        tile size stays: the padded per-atom tables are built for it.  The
+        JAX package keeps all of these fixed from construction and runs the
+        flagged list anyway (ROADMAP C).  Returns a note of what changed."""
         pos = np.asarray(self.place_vsites(pos_raw).detach().cpu(),
                          np.float64)
         box = np.asarray(box.detach().cpu(), np.float64)
         rc_cand = self.system.r_cutoff + self.skin
-        old = (self.plist_nowrap, self.plist_cap)
+        old = (self.plist_sort, self.plist_nowrap, self.plist_cap)
+        costs = {key: self._plist_cost(pos, box, self.pair_ts, key)
+                 for key in ("z", "morton")}
+        self.plist_sort = min(costs, key=lambda key: costs[key][0])
+        cnt = costs[self.plist_sort][1]
         self.plist_nowrap = pair_plist.nowrap_axes_np(
             pos, box, self.pair_ts, rc_cand, mode=self.plist_sort)
         n_tiles = -(-self.system.n_atoms // self.pair_ts)
-        cnt = pair_plist.count_candidates_np(
-            pos, box, self.pair_ts, rc_cand, mode=self.plist_sort,
-            inert=self._inert_mask)
         if cnt > self.plist_cap:
             self.plist_cap = min(n_tiles * (n_tiles + 1) // 2,
                                  int(cnt * 1.6) + 64)
-        return (f"nowrap {old[0]} -> {self.plist_nowrap}, plist_cap "
-                f"{old[1]} -> {self.plist_cap}")
+        return (f"sort {old[0]} -> {self.plist_sort}, nowrap {old[1]} -> "
+                f"{self.plist_nowrap}, plist_cap {old[2]} -> "
+                f"{self.plist_cap}")
 
     # -- gradient terms ----------------------------------------------------
     def _smooth_energy(self, pos, box):

@@ -49,12 +49,17 @@ def _half_space_modes(kmax) -> np.ndarray:
     return np.ascontiguousarray(modes.astype(np.float32))
 
 
-def k_tiling(kmax):
-    """(K, kt, kp): the real mode count, the k tile (one tile up to 2048
-    modes, else tiles of 1024) and the padded mode count."""
+@functools.lru_cache(maxsize=32)
+def _k_tiling(kmax):
     k_real = _half_space_modes(kmax).shape[0]
     kt = max(128, -(-k_real // 128) * 128) if k_real <= 2048 else 1024
     return k_real, kt, -(-k_real // kt) * kt
+
+
+def k_tiling(kmax):
+    """(K, kt, kp): the real mode count, the k tile (one tile up to 2048
+    modes, else tiles of 1024) and the padded mode count."""
+    return _k_tiling(tuple(int(k) for k in kmax))
 
 
 @functools.lru_cache(maxsize=8)
@@ -65,6 +70,24 @@ def _modes_t(kmax, device: str):
     out = np.zeros((3, kp), np.float32)
     out[:, :modes.shape[0]] = modes.T
     return torch.as_tensor(out, device=device)
+
+
+def column_offsets(kmax) -> np.ndarray:
+    """Offset into the ``_half_space_modes`` list of each (nx, ny) column,
+    ((2 kmx + 1)(2 kmy + 1) + 1,) int32 in the list's own C order (nx
+    slowest).  A column holds nz = 0 .. kmz, or nz = 1 .. kmz where its
+    (nx, ny) is not in the canonical half of the nz = 0 plane, so it always
+    ends at nz = kmz.  Kernel B5 walks the list by these offsets."""
+    nx = np.arange(-kmax[0], kmax[0] + 1)[:, None]
+    ny = np.arange(-kmax[1], kmax[1] + 1)[None, :]
+    plane0 = (ny > 0) | ((ny == 0) & (nx > 0))
+    counts = (kmax[2] + plane0.astype(np.int64)).reshape(-1)
+    return np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=8)
+def _column_offsets_t(kmax, device: str):
+    return torch.as_tensor(column_offsets(kmax), device=device)
 
 
 def _prep(pos, box, charges, beta, kmax, ts):
@@ -125,6 +148,51 @@ def recip_forces_reference(posp, qp, kvec, ab):
     return torch.cat(out, dim=0)
 
 
+def recip_forces_factorised(posp, qp, ab, kmax, box):
+    """Plain torch model of kernel B5's algorithm: e^{i k.r} = ex[nx] ey[ny]
+    ez[nz] from per-atom tables of one direct sin/cos each, with the modes
+    taken column by column in the list's order through ``column_offsets``
+    (a dense (nx, ny, nz) block of (a_k, b_k), zero where the list has no
+    mode).  Returns forces (n_pad, 3); agrees with ``recip_forces_reference``
+    to float32 rounding.  For small systems: it holds (n_pad, nx, ny, nz)
+    blocks."""
+    dev, f32 = posp.device, torch.float32
+    kmx, kmy, kmz = (int(k) for k in kmax)
+    off = torch.as_tensor(column_offsets(kmax).astype(np.int64), device=dev)
+    nzs = kmz + 1
+    cnt = off[1:] - off[:-1]
+    nz = torch.arange(nzs, device=dev)
+    k = off[:-1, None] + nz[None, :] - (nzs - cnt)[:, None]
+    live = k >= off[:-1, None]
+    k = torch.where(live, k, torch.zeros_like(k))
+    zero = torch.zeros((), dtype=f32, device=dev)
+    dense = [torch.where(live, ab[c][k], zero).reshape(
+        2 * kmx + 1, 2 * kmy + 1, nzs) for c in range(2)]
+    two_pi = float(np.float32(2.0 * PI))
+    box = box.reshape(3).to(f32)
+
+    def axis(c, km, signed):
+        n = torch.arange(-km if signed else 0, km + 1, device=dev).to(f32)
+        kn = two_pi * n / box[c]
+        th = posp[:, c:c + 1] * kn[None, :]
+        return kn, torch.cos(th), torch.sin(th)
+
+    kx, cx, sx = axis(0, kmx, True)
+    ky, cy, sy = axis(1, kmy, True)
+    kz, cz, sz = axis(2, kmz, False)
+    cxy = cx[:, :, None] * cy[:, None, :] - sx[:, :, None] * sy[:, None, :]
+    sxy = cx[:, :, None] * sy[:, None, :] + sx[:, :, None] * cy[:, None, :]
+    c3 = cxy[..., None] * cz[:, None, None, :] \
+        - sxy[..., None] * sz[:, None, None, :]
+    s3 = cxy[..., None] * sz[:, None, None, :] \
+        + sxy[..., None] * cz[:, None, None, :]
+    g = qp[:, None, None, None] * (dense[0][None] * c3 - dense[1][None] * s3)
+    return -torch.stack([
+        torch.sum(g * kx[None, :, None, None], dim=(1, 2, 3)),
+        torch.sum(g * ky[None, None, :, None], dim=(1, 2, 3)),
+        torch.sum(g * kz[None, None, None, :], dim=(1, 2, 3))], dim=1)
+
+
 def _launcher():
     """The kernel library with its C signatures declared (pointers and the
     stream as c_void_p, so ctypes never truncates them to 32 bits)."""
@@ -132,11 +200,12 @@ def _launcher():
     if lib.ewald_structure_launch.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.ewald_structure_launch.argtypes = [P, P, P, I, I, P, P, P, P]
-        lib.ewald_force_launch.argtypes = [P, P, P, P, I, I, P, P, P]
+        lib.ewald_force_launch.argtypes = [P, P, P, P, P, I, I, I, I, I, P,
+                                           P, P]
         lib.ewald_structure_launch.restype = I
         lib.ewald_force_launch.restype = I
         lib.ewald_structure_chunks.argtypes = [I]
-        lib.ewald_force_splits.argtypes = [I]
+        lib.ewald_force_splits.argtypes = [I, I, I, I]
         lib.ewald_structure_chunks.restype = I
         lib.ewald_force_splits.restype = I
         lib.ewald_fused_error_string.argtypes = [I]
@@ -193,21 +262,32 @@ def structure_factor(posp, qp, kvec):
 structure_factor.launches = 0
 
 
-def recip_forces(posp, qp, kvec, ab):
-    """Per-atom reciprocal forces (n_pad, 3).  On a CUDA tensor this
-    launches kernel B5 and counts it in ``recip_forces.launches``; on a CPU
-    tensor it runs ``recip_forces_reference``."""
+def recip_forces(posp, qp, kvec, ab, kmax, box):
+    """Per-atom reciprocal forces (n_pad, 3) over the half-space list of
+    ``kmax`` in the box ``box`` (3,): ``kvec`` must be ``_prep``'s list for
+    them.  On a CUDA tensor this launches kernel B5, which rebuilds the
+    phases from ``kmax`` and ``box`` and reads ``ab`` in the list's order,
+    and counts it in ``recip_forces.launches``; on a CPU tensor it runs
+    ``recip_forces_reference`` on ``kvec``."""
     if posp.device.type == "cpu":
         return recip_forces_reference(posp, qp, kvec, ab)
     dev, n_pad, kp = _check_inputs("recip_forces", posp, qp, kvec)
     _check("recip_forces", ab, "ab", (2, kp), dev)
+    kmax = tuple(int(k) for k in kmax)
+    if len(kmax) != 3 or min(kmax) < 0 or k_tiling(kmax)[2] != kp:
+        raise ValueError(f"recip_forces: kvec has {kp} columns, not the "
+                         f"padded half-space list of kmax={kmax}")
+    box = box.reshape(3)
+    _check("recip_forces", box, "box", (3,), dev)
+    off = _column_offsets_t(kmax, str(dev))
     lib = _launcher()
-    part = torch.empty((lib.ewald_force_splits(kp), 3, n_pad),
+    part = torch.empty((lib.ewald_force_splits(*kmax, n_pad), 3, n_pad),
                        dtype=torch.float32, device=dev)
     f = torch.empty((n_pad, 3), dtype=torch.float32, device=dev)
     _raise(lib, lib.ewald_force_launch(
-        posp.data_ptr(), qp.data_ptr(), kvec.data_ptr(), ab.data_ptr(),
-        n_pad, kp, part.data_ptr(), f.data_ptr(),
+        posp.data_ptr(), qp.data_ptr(), ab.data_ptr(), box.data_ptr(),
+        off.data_ptr(), kmax[0], kmax[1], kmax[2], n_pad, kp,
+        part.data_ptr(), f.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream), "recip_forces")
     recip_forces.launches += 1
     return f
@@ -237,7 +317,8 @@ class _FusedReciprocal(torch.autograd.Function):
                                                kmax, ts)
         # dE/dtheta_ik = 2 c0 w_k (S_im cos - S_re sin) q_i
         ab = torch.stack([2.0 * c0 * w * s_im, 2.0 * c0 * w * s_re])
-        dpos = -recip_forces(posp, qp, kvec, ab.contiguous())[:pos.shape[0]]
+        dpos = -recip_forces(posp, qp, kvec, ab.contiguous(), kmax,
+                             box.to(torch.float32))[:pos.shape[0]]
         return (g * dpos, torch.zeros_like(box), torch.zeros_like(charges),
                 None, None, None)
 

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import warnings
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -42,6 +43,12 @@ NOWRAP_SLACK = 0.2
 # pairs per batch of plist_pair_reference: bounds its (E, ts, ts)
 # temporaries to a few hundred MB on a card
 _REF_BATCH_PAIRS = 1 << 22
+
+
+def slice_entries(ts: int) -> int:
+    """Entries of a row tile that one block of kernel B1 takes: 16 at
+    ts = 32, 4 at 64, one from 96 on (a block then is one tile pair)."""
+    return max(1, 16 // (ts // 32) ** 2)
 
 
 @functools.lru_cache(maxsize=8)
@@ -116,13 +123,18 @@ class PairCache(NamedTuple):
     overflow: torch.Tensor   # () bool: candidates exceeded cap (or the
     #                          nowrap frame budget failed)
     tile_inert: Optional[torch.Tensor]  # (T,) bool, force-path culling
-    # per-tile reduction index of kernel B1's per-entry partials:
-    # entries [row_ptr[t], row_ptr[t+1]) have row tile t (the list is
-    # sorted by row tile); col_idx[col_ptr[t]:col_ptr[t+1]] are the
-    # off-diagonal entries with column tile t, ascending
+    # per-tile index of kernel B1: entries [row_ptr[t], row_ptr[t+1]) have
+    # row tile t (the list is sorted by row tile) and are one block's work;
+    # col_idx[col_ptr[t]:col_ptr[t+1]] are the off-diagonal entries with
+    # column tile t, ascending, whose column partials the kernel sums
     row_ptr: torch.Tensor    # (T+1,) i32
     col_ptr: torch.Tensor    # (T+1,) i32
     col_idx: torch.Tensor    # (cap,) i32
+    # kernel B1's blocks (slice_blocks): row tile and first entry of each
+    # block, and the blocks [blk_ptr[t], blk_ptr[t+1]) of row tile t
+    blk_tile: torch.Tensor   # (cap // slice + T,) i32, -1 for no block
+    blk_e0: torch.Tensor     # (cap // slice + T,) i32
+    blk_ptr: torch.Tensor    # (T+1,) i32
     # row-layout LJ rows [A | B] and group rows, sorted: the strict
     # fallback runs kernel B2 on this layout (pair_tri.run_tri)
     ab: torch.Tensor         # (n_pad, 2T) f32
@@ -231,6 +243,30 @@ def padded_statics(charges, tables, ts, device):
         ljt=col(lj_type, -1, np.int32),
         grp=col(np.argmax(tables["gonehot"], axis=1) if groups
                 else np.zeros(n, np.int64), 0, np.int32))
+
+
+def slice_blocks(row_ptr, cap: int, ts: int):
+    """Cut each row tile's entries into slices of ``slice_entries(ts)``, one
+    block of kernel B1 each: returns (blk_tile, blk_e0, blk_ptr), int32.
+    The block count is fixed at ``cap // slice + n_tiles`` (no host
+    synchronisation); blocks beyond the slices in use carry tile -1."""
+    dev = row_ptr.device
+    s = slice_entries(ts)
+    n_tiles = row_ptr.shape[0] - 1
+    n_blocks = cap // s + n_tiles
+    row_ptr = row_ptr.to(torch.int64)
+    n_slices = (row_ptr[1:] - row_ptr[:-1] + (s - 1)) // s
+    blk_ptr = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                         torch.cumsum(n_slices, 0)])
+    b = torch.arange(n_blocks, device=dev)
+    tile = torch.clamp(torch.searchsorted(blk_ptr, b, right=True) - 1,
+                       max=n_tiles - 1)
+    used = b < blk_ptr[-1]
+    e0 = row_ptr[tile] + (b - blk_ptr[tile]) * s
+    i32 = torch.int32
+    return (torch.where(used, tile, torch.full_like(tile, -1)).to(i32),
+            torch.where(used, e0, torch.zeros_like(e0)).to(i32),
+            blk_ptr.to(i32))
 
 
 def make_pair_cache(pos, box, charges, tables, ts: int, mode: str = "morton",
@@ -349,7 +385,7 @@ def make_pair_cache(pos, box, charges, tables, ts: int, mode: str = "morton",
     k2 = blocks[0].shape[1]
     ab2 = torch.cat([blk.reshape(n_tiles, ts, k2) for blk in blocks],
                     dim=1).reshape(len(blocks) * n_pad, k2).contiguous()
-    # reduction index for the kernel's per-entry partials
+    # the kernel's per-tile index (see PairCache.row_ptr)
     tiles = torch.arange(n_tiles + 1, device=dev)
     row_key = torch.where(active, i_t, torch.full_like(i_t, n_tiles))
     row_ptr = torch.searchsorted(row_key, tiles)
@@ -358,6 +394,7 @@ def make_pair_cache(pos, box, charges, tables, ts: int, mode: str = "morton",
     col_idx = torch.sort(col_key, stable=True).indices
     col_ptr = torch.searchsorted(col_key[col_idx], tiles)
     i32 = torch.int32
+    blk_tile, blk_e0, blk_ptr = slice_blocks(row_ptr, cap, ts)
     return PairCache(
         perm=perm, invperm=invperm, q=statics["q"][perm].contiguous(),
         bits=statics["bits"][perm].contiguous(), oid=perm.to(i32),
@@ -365,7 +402,8 @@ def make_pair_cache(pos, box, charges, tables, ts: int, mode: str = "morton",
         grp=statics["grp"][perm].contiguous(), ab2=ab2, plist=plist,
         cand=cand, overflow=overflow, tile_inert=tile_inert,
         row_ptr=row_ptr.to(i32), col_ptr=col_ptr.to(i32),
-        col_idx=col_idx.to(i32), ab=ab.contiguous(),
+        col_idx=col_idx.to(i32), blk_tile=blk_tile, blk_e0=blk_e0,
+        blk_ptr=blk_ptr, ab=ab.contiguous(),
         grows=None if grows is None else grows.contiguous())
 
 
@@ -404,7 +442,12 @@ def _tile_intervals_np(pos, box, ts, mode):
     if mode == "z":
         order = np.argsort(w[:, 2], kind="stable")
     else:
-        cell = np.clip((w / box * 64.0).astype(np.int64), 0, 63)
+        # the cell in float32, as _morton_key takes it on the device: on a
+        # lattice start atoms sit on cell boundaries, where a float64 cell
+        # would sort them into other tiles than the list's
+        p32, b32 = pos.astype(np.float32), box.astype(np.float32)
+        w32 = p32 - b32 * np.floor(p32 / b32)
+        cell = np.clip((w32 / b32 * np.float32(64.0)).astype(np.int64), 0, 63)
 
         def spread(x):
             out = np.zeros_like(x)
@@ -455,13 +498,10 @@ def nowrap_axes_np(pos, box, ts: int, rc_cand: float,
                  for ax in range(3))
 
 
-def count_candidates_np(pos, box, ts: int, rc_cand: float,
-                        mode: str = "morton", inert=None) -> int:
-    """Host-side (numpy) mirror of the AABB candidate enumeration under
-    the chosen sort key: the exact candidate tile-pair count for THIS
-    configuration.  Used to size the pair-list capacity at evaluator build
-    (cap = margin x count) and to pick the better sort key; the runtime
-    overflow flag + full-sweep fallback guard the margin."""
+def _candidates_np(pos, box, ts, rc_cand, mode, inert):
+    """Host-side (numpy) mirror of the AABB candidate enumeration under the
+    chosen sort key: the (n_tiles, n_tiles) upper-triangle candidate matrix
+    of THIS configuration, and the sort order."""
     pos = np.asarray(pos, np.float64)
     box = np.asarray(box, np.float64).reshape(3)
     n = pos.shape[0]
@@ -488,7 +528,58 @@ def count_candidates_np(pos, box, ts: int, rc_cand: float,
         cand &= ~(ti[:, None] & ti[None, :]
                   & ~np.eye(n_tiles, dtype=bool))
     ii = np.arange(n_tiles)
-    return int(np.sum(cand & (ii[None, :] >= ii[:, None])))
+    return cand & (ii[None, :] >= ii[:, None]), order
+
+
+def count_candidates_np(pos, box, ts: int, rc_cand: float,
+                        mode: str = "morton", inert=None) -> int:
+    """The exact candidate tile-pair count for THIS configuration.  Used to
+    size the pair-list capacity at evaluator build (cap = margin x count)
+    and to pick the better sort key; the runtime overflow flag + full-sweep
+    fallback guard the margin."""
+    return int(np.sum(_candidates_np(pos, box, ts, rc_cand, mode, inert)[0]))
+
+
+def count_evaluations_np(pos, box, ts: int, rc_cand: float, r_cutoff: float,
+                         mode: str = "morton", inert=None):
+    """(entries, evaluations): the candidate tile pairs of THIS configuration
+    and a host-side (numpy) model of the pair evaluations kernel B1 makes on
+    them after its column skip: for every entry and every chunk of 32 rows,
+    the columns of each 32-column chunk within ``r_cutoff`` of the row
+    chunk's bounding box (taken about the chunk's first atom, grown by 0.001
+    nm), rounded up to the kernel's rounds of four columns, times 32 rows.
+    The model leaves out the nowrap frame and the columns an entry with
+    exclusions keeps whatever their distance.  ``ForceEvaluator`` sizes its
+    tile choice on it."""
+    pos = np.asarray(pos, np.float64)
+    box = np.asarray(box, np.float64).reshape(3)
+    cand, order = _candidates_np(pos, box, ts, rc_cand, mode, inert)
+    ti, tj = np.nonzero(cand)
+    n = pos.shape[0]
+    n_tiles = cand.shape[0]
+    nrc = ts // 32
+    w = np.full((n_tiles * ts, 3), np.nan)
+    w[:n] = (pos - box * np.floor(pos / box))[order]
+    chunks = w.reshape(n_tiles * nrc, 32, 3)
+    with np.errstate(invalid="ignore"), warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)  # all-pad chunks
+        rel = chunks - box * np.round((chunks - chunks[:, :1]) / box)
+        lo, hi = np.nanmin(rel, axis=1), np.nanmax(rel, axis=1)
+    mid = (0.5 * (lo + hi)).reshape(n_tiles, nrc, 3)
+    half = (0.5 * (hi - lo) + 1e-3).reshape(n_tiles, nrc, 3)
+    cols = w.reshape(n_tiles, ts, 3)
+    evaluations = 0
+    step = max(1, (1 << 21) // (nrc * ts))
+    for s in range(0, ti.shape[0], step):
+        a, b = ti[s:s + step], tj[s:s + step]
+        u = cols[b][:, None, :, :] - mid[a][:, :, None, :]
+        u -= box * np.round(u / box)
+        gap = np.maximum(np.abs(u) - half[a][:, :, None, :], 0.0)
+        with np.errstate(invalid="ignore"):  # pad columns are nan: not kept
+            keep = np.sum(gap * gap, axis=-1) <= r_cutoff ** 2 * 1.0001
+        kept = keep.reshape(a.shape[0], nrc, nrc, 32).sum(axis=-1)
+        evaluations += int((-(-kept // 4) * 4).sum()) * 32
+    return int(ti.shape[0]), evaluations
 
 
 # ------------------------------------------------------------- kernel B1
@@ -655,7 +746,8 @@ def _launcher():
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.plist_pair_launch.argtypes = [
             P, I, P, P, P, I, I, I, P, P, P, P, P, I, I, F, F, F, F, F, F,
-            ctypes.POINTER(F), I, I, P, P, P, P, P, P, P, P]
+            ctypes.POINTER(F), I, I, P, P, P, P, P, P, I, I, P, P, P, P, P,
+            P]
         lib.plist_pair_launch.restype = I
         lib.plist_pair_error_string.argtypes = [I]
         lib.plist_pair_error_string.restype = ctypes.c_char_p
@@ -673,13 +765,19 @@ def _check(t, name, dtype, shape, device):
 
 def plist_pair(plist, row_ptr, col_ptr, col_idx, pos, q, ab2, ljt, grp,
                bits, oid, box, *, ts, t_dim, beta, r_cutoff, r_switch=0.0,
-               nowrap=(False, False, False), want_energy=False):
+               nowrap=(False, False, False), want_energy=False,
+               blocks=None, evals=None):
     """The plist pair sweep: returns (rows (n_pad, 8), colacc (8, n_pad)).
 
     On a CUDA tensor this launches kernel B1 (``csrc/plist_pair.cu``) on the
     current stream and counts the launch in ``plist_pair.launches``; on a
     CPU tensor it runs ``plist_pair_reference``.  There is no fallback: a
-    CUDA call the kernel cannot take raises."""
+    CUDA call the kernel cannot take raises.  ``ts`` is a multiple of 32
+    from 32 to 384.  ``blocks`` is ``slice_blocks(row_ptr, cap, ts)`` (a
+    cache carries it; built here when not given).  ``evals``, a one-element
+    int64 CUDA tensor, has the kernel add the pair evaluations it makes
+    after its column skip (a measurement aid; the CPU version ignores
+    it)."""
     dev = pos.device
     if dev.type == "cpu":
         return plist_pair_reference(
@@ -688,8 +786,9 @@ def plist_pair(plist, row_ptr, col_ptr, col_idx, pos, q, ab2, ljt, grp,
             r_switch=r_switch, nowrap=nowrap, want_energy=want_energy)
     if dev.type != "cuda":
         raise ValueError(f"plist_pair: unsupported device {dev}")
-    if ts not in (128, 256, 384):
-        raise ValueError(f"plist_pair: ts must be 128, 256 or 384, got {ts}")
+    if ts % 32 or not 32 <= ts <= 384:
+        raise ValueError(f"plist_pair: ts must be a multiple of 32 from 32 "
+                         f"to 384, got {ts}")
     n_pad = pos.shape[0]
     n_tiles = n_pad // ts
     cap = plist.shape[0]
@@ -708,14 +807,23 @@ def plist_pair(plist, row_ptr, col_ptr, col_idx, pos, q, ab2, ljt, grp,
     _check(box, "box", f32, (3,), dev)
     if stack not in (2, 3):
         raise ValueError("plist_pair: ab2 must stack 2 or 3 blocks")
+    if evals is not None:
+        _check(evals, "evals", torch.int64, (1,), dev)
     sc = _kernel_scalars(beta, r_cutoff)
     rows = torch.empty((n_pad, 8), dtype=f32, device=dev)
     colacc = torch.empty((8, n_pad), dtype=f32, device=dev)
-    prow = torch.empty((cap, 6, ts), dtype=f32, device=dev)
-    pcol = torch.empty((cap, 3, ts), dtype=f32, device=dev)
+    if blocks is None:
+        blocks = slice_blocks(row_ptr, cap, ts)
+    blk_tile, blk_e0, blk_ptr = blocks
+    n_blocks = cap // slice_entries(ts) + n_tiles
+    _check(blk_tile, "blocks[0]", i32, (n_blocks,), dev)
+    _check(blk_e0, "blocks[1]", i32, (n_blocks,), dev)
+    _check(blk_ptr, "blocks[2]", i32, (n_tiles + 1,), dev)
+    lib = _launcher()
+    prow = torch.empty((n_blocks, 6, ts), dtype=f32, device=dev)
+    pcol = torch.empty((cap, ts // 32, 3, ts), dtype=f32, device=dev)
     pcoef = (ctypes.c_float * len(sc["pcoef"]))(*sc["pcoef"])
     nw = int(nowrap[0]) | (int(nowrap[1]) << 1) | (int(nowrap[2]) << 2)
-    lib = _launcher()
     err = lib.plist_pair_launch(
         plist.data_ptr(), cap, pos.data_ptr(), q.data_ptr(), ab2.data_ptr(),
         ab2.shape[1], t_dim, stack, ljt.data_ptr(), grp.data_ptr(),
@@ -723,7 +831,10 @@ def plist_pair(plist, row_ptr, col_ptr, col_idx, pos, q, ab2, ljt, grp,
         float(beta), sc["rc2"], float(r_cutoff), float(r_switch), _CAP3,
         sc["gauss_pref"], pcoef, nw, int(bool(want_energy)),
         row_ptr.data_ptr(), col_ptr.data_ptr(), col_idx.data_ptr(),
-        prow.data_ptr(), pcol.data_ptr(), rows.data_ptr(), colacc.data_ptr(),
+        blk_tile.data_ptr(), blk_e0.data_ptr(), blk_ptr.data_ptr(),
+        n_blocks, slice_entries(ts), prow.data_ptr(), pcol.data_ptr(),
+        rows.data_ptr(), colacc.data_ptr(),
+        None if evals is None else evals.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError("plist_pair kernel launch failed: "
@@ -742,7 +853,8 @@ def sweep(cache: PairCache, pos_sorted, box, *, ts, t_dim, beta, r_cutoff,
         cache.plist, cache.row_ptr, cache.col_ptr, cache.col_idx,
         pos_sorted, cache.q, cache.ab2, cache.ljt, cache.grp, cache.bits,
         cache.oid, box, ts=ts, t_dim=t_dim, beta=beta, r_cutoff=r_cutoff,
-        r_switch=r_switch, nowrap=nowrap, want_energy=want_energy)
+        r_switch=r_switch, nowrap=nowrap, want_energy=want_energy,
+        blocks=(cache.blk_tile, cache.blk_e0, cache.blk_ptr))
 
 
 # ------------------------------------------------------------- the sweep

@@ -29,6 +29,7 @@ from openmm_velocityverlet_tpu_torch.ops import pair_plist as tpp
 from openmm_velocityverlet_tpu_torch.ops import pair_tri as tpt
 from openmm_velocityverlet_tpu_torch.system import system_from_numpy
 from tests.test_pallas import _mol_system
+from tests.test_torch_pair import assert_forces_close
 
 BETA, RC = 2.2, 1.2
 F_RTOL, F_ATOL = 1e-3, 5e-2
@@ -127,8 +128,7 @@ def test_dense_exc14_matches_jax():
     assert abs(float(ref[3])) > 1.0 and abs(float(ref[4])) > 1e-3
     for x, y in zip(ref[:5], got[:5]):
         np.testing.assert_allclose(float(y), float(x), rtol=5e-5, atol=1e-3)
-    np.testing.assert_allclose(got[5].numpy(), np.asarray(ref[5]),
-                               rtol=F_RTOL, atol=F_ATOL)
+    assert_forces_close(got[5].numpy(), np.asarray(ref[5]))
 
 
 def _layouts(tables, pos, box, q, ts, z_sorted):
@@ -196,10 +196,10 @@ def test_run_tri_matches_jax(case, has14, want_energy, groups):
                                  interpret=True, **kw)
     rows_t, col_t = tpt.run_tri(*targs, **kw)
     rows_j, col_j = np.asarray(rows_j), np.asarray(col_j)
-    np.testing.assert_allclose(rows_t[:, :3].numpy(), rows_j[:, :3],
-                               rtol=F_RTOL, atol=F_ATOL)
-    np.testing.assert_allclose(col_t.numpy(), col_j, rtol=F_RTOL,
+    assert_forces_close(rows_t[:, :3].numpy(), rows_j[:, :3])
+    np.testing.assert_allclose(col_t[3:].numpy(), col_j[3:], rtol=F_RTOL,
                                atol=F_ATOL)
+    assert_forces_close(col_t[:3].numpy().T, col_j[:3].T)
     e_rtol, e_atol = (5e-5, 1e-3) if has14 else (2e-5, 1e-6)
     for c in range(3, 8):
         np.testing.assert_allclose(float(rows_t[:, c].double().sum()),
@@ -226,10 +226,8 @@ def test_direct_space_band_matches_jax(has14):
     for x, y, z in zip(ref[:5], got[:5], dense[:5]):
         np.testing.assert_allclose(float(y), float(x), rtol=5e-5, atol=1e-3)
         np.testing.assert_allclose(float(z), float(x), rtol=5e-5, atol=1e-3)
-    np.testing.assert_allclose(got[5].numpy(), np.asarray(ref[5]),
-                               rtol=F_RTOL, atol=F_ATOL)
-    np.testing.assert_allclose(got[5].numpy(), dense[5].numpy(),
-                               rtol=F_RTOL, atol=F_ATOL)
+    assert_forces_close(got[5].numpy(), np.asarray(ref[5]))
+    assert_forces_close(got[5].numpy(), dense[5].numpy())
 
 
 def test_band_cache_and_coverage_match_jax():
@@ -283,10 +281,8 @@ def test_strict_band_takes_full_sweep():
     for x, y, z in zip(ref[:5], got[:5], dense[:5]):
         np.testing.assert_allclose(float(y), float(x), rtol=5e-5, atol=1e-3)
         np.testing.assert_allclose(float(z), float(x), rtol=5e-5, atol=1e-3)
-    np.testing.assert_allclose(got[5].numpy(), np.asarray(ref[5]),
-                               rtol=F_RTOL, atol=F_ATOL)
-    np.testing.assert_allclose(got[5].numpy(), dense[5].numpy(),
-                               rtol=F_RTOL, atol=F_ATOL)
+    assert_forces_close(got[5].numpy(), np.asarray(ref[5]))
+    assert_forces_close(got[5].numpy(), dense[5].numpy())
 
 
 @pytest.mark.parametrize("sort,trip", [("z", "stale"),
@@ -320,10 +316,8 @@ def test_strict_plist_stale_cache(sort, trip):
     for x, y, z in zip(ref[:3], got[:3], dense[:3]):
         np.testing.assert_allclose(float(y), float(x), rtol=5e-5, atol=0.05)
         np.testing.assert_allclose(float(z), float(x), rtol=5e-5, atol=0.05)
-    np.testing.assert_allclose(got[5].numpy(), np.asarray(ref[5]),
-                               rtol=F_RTOL, atol=F_ATOL)
-    np.testing.assert_allclose(got[5].numpy(), dense[5].numpy(),
-                               rtol=F_RTOL, atol=F_ATOL)
+    assert_forces_close(got[5].numpy(), np.asarray(ref[5]))
+    assert_forces_close(got[5].numpy(), dense[5].numpy())
 
 
 def _chain_system(builder_cls, n_mol=125, seed=3):

@@ -91,3 +91,49 @@ def test_fused_box_charge_gradients_are_zero_by_contract():
         jnp.asarray(pos), bb, jnp.asarray(q), BETA, (3, 4, 6), 32, True))(
         jnp.asarray(box))
     assert float(jnp.abs(jg_b).max()) == 0.0
+
+
+@pytest.mark.parametrize("n,kmax,ts", [(97, (3, 4, 5), 32),
+                                       (40, (20, 20, 20), 8)])
+def test_factorised_forces_match_reference_and_jax(n, kmax, ts):
+    """The algorithm of kernel B5 (per-atom phase tables multiplied out, the
+    modes taken column by column through ``column_offsets``) in plain torch
+    against the theta = k . r plain version and against the JAX ``_forces``
+    in interpret mode, on ``(a_k, b_k)`` from a real structure factor.  This
+    pins the order of the K list the kernel relies on: (20, 20, 20) is the
+    19,500-atom system's grid (34,460 modes, tiled by 1024)."""
+    pos, box, q = _system(n, 14)
+    posp, qp, kvec, w, c0, n_pad, kp, kt = tef._prep(_t(pos), _t(box), _t(q),
+                                                     BETA, kmax, ts)
+    off = tef.column_offsets(kmax)
+    k_real = tef.k_tiling(kmax)[0]
+    assert off[-1] == k_real and off.shape[0] == \
+        (2 * kmax[0] + 1) * (2 * kmax[1] + 1) + 1
+    # every column is one (nx, ny), ascending in nz and ending at kmax_z
+    modes = tef._half_space_modes(kmax)
+    nys = 2 * kmax[1] + 1
+    for c in range(off.shape[0] - 1):
+        seg = modes[off[c]:off[c + 1]]
+        assert (seg[:, 0] == c // nys - kmax[0]).all()
+        assert (seg[:, 1] == c % nys - kmax[1]).all()
+        assert seg.shape[0] in (kmax[2], kmax[2] + 1)
+        assert seg[-1, 2] == kmax[2] and (np.diff(seg[:, 2]) == 1).all()
+    s_re, s_im = tef.structure_factor(posp, qp, kvec)
+    ab = torch.stack([2.0 * c0 * w * s_im, 2.0 * c0 * w * s_re]).contiguous()
+    assert not ab[:, k_real:].any()
+    f_ref = tef.recip_forces_reference(posp, qp, kvec, ab)
+    f_fac = tef.recip_forces_factorised(posp, qp, ab, kmax, _t(box))
+    ab8 = jnp.zeros((8, kp), jnp.float32).at[:2].set(jnp.asarray(ab.numpy()))
+    f_jax = np.asarray(jep._forces(
+        jnp.asarray(posp.numpy()), jnp.asarray(qp.numpy())[:, None],
+        jnp.asarray(kvec.numpy()), ab8, ts, kp, kt, n, True))
+    scale = float(f_ref.abs().max())
+    assert scale > 1.0
+    np.testing.assert_allclose(f_fac.numpy(), f_ref.numpy(),
+                               atol=3e-5 * scale, rtol=2e-4)
+    np.testing.assert_allclose(f_fac.numpy()[:n], f_jax,
+                               atol=3e-5 * scale, rtol=2e-4)
+    # the public wrapper takes kmax and box and, on the CPU, the plain version
+    np.testing.assert_array_equal(
+        tef.recip_forces(posp, qp, kvec, ab, kmax, _t(box)).numpy(),
+        f_ref.numpy())

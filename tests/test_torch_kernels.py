@@ -1,6 +1,7 @@
 """The hand-written kernels against their plain torch versions on the card:
-B1 (csrc/plist_pair.cu) for every tile size the ForceEvaluator can choose
-and both specializations; B2 (csrc/tri_pair.cu) in every tile-pair
+B1 (csrc/plist_pair.cu) for the tile sizes from one warp (32) to 384, both
+specializations, the nowrap and wrapped frames and the LJ rows in shared
+memory or read through __ldg; B2 (csrc/tri_pair.cu) in every tile-pair
 enumeration x specialization x 1-4 folding x interaction groups; B4/B5
 (csrc/ewald_fused.cu) forward, backward and through autograd; B3
 (csrc/rect_pair.cu) at two tile shapes with and without interaction groups;
@@ -29,14 +30,14 @@ pytestmark = pytest.mark.cuda
 BETA, RC = 2.2, 1.2
 
 
-def _grid_mol_system(rng, nx=4, ny=4, nz=24, lz=12.0, apm=4):
+def _grid_mol_system(rng, nx=4, ny=4, nz=24, lz=12.0, apm=4, n_types=3):
     """Molecules of ``apm`` mutually excluded atoms on a jittered grid in a
     tall box (the layout of tests/test_pallas.py:_grid_mol_system, built
     here without jax: the card's machine has none)."""
     n = nx * ny * nz * apm
-    lj_type = rng.integers(0, 3, n)
-    sig = rng.uniform(0.25, 0.4, 3)
-    eps = rng.uniform(0.1, 1.0, 3)
+    lj_type = rng.integers(0, n_types, n)
+    sig = rng.uniform(0.25, 0.4, n_types)
+    eps = rng.uniform(0.1, 1.0, n_types)
     a = np.sqrt(np.outer(eps, eps)) ** 0.5 * np.outer(sig, sig) ** 3 * 2.0
     b = 2.0 * np.sqrt(np.outer(eps, eps)) * np.outer(sig, sig) ** 3 * 2.0
     box = np.array([3.0, 3.0, lz], np.float32)
@@ -62,9 +63,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _setup(dev, ts, groups, nowrap):
+def _setup(dev, ts, groups, nowrap, n_types=3):
     rng = np.random.default_rng(11)
-    lj_type, a, b, excl, pos, box, q = _grid_mol_system(rng)
+    lj_type, a, b, excl, pos, box, q = _grid_mol_system(rng, n_types=n_types)
     n = len(lj_type)
     lj_group = rng.integers(0, 2, n) if groups else None
     allowed = np.array([[True, True], [True, False]]) if groups else None
@@ -86,24 +87,23 @@ def _setup(dev, ts, groups, nowrap):
             boxd)
     kw = dict(ts=ts, t_dim=tables["arows"].shape[1], beta=BETA, r_cutoff=RC,
               nowrap=nw)
-    return args, kw
+    return args, kw, (cache.blk_tile, cache.blk_e0, cache.blk_ptr)
 
 
-@pytest.mark.parametrize("ts", [128, 256, 384])
-@pytest.mark.parametrize("want_energy", [False, True])
-@pytest.mark.parametrize("groups,nowrap,r_switch", [
-    (False, True, 0.0), (True, False, 0.0), (False, False, 0.9)])
-def test_plist_kernel_matches_plain(cuda, ts, want_energy, groups, nowrap,
-                                    r_switch):
-    args, kw = _setup(cuda, ts, groups, nowrap)
-    kw["r_switch"] = r_switch
+def _plist_against_plain(dev, args, kw, blocks, want_energy):
+    ts = kw["ts"]
     before = pair_plist.plist_pair.launches
+    evals = torch.zeros(1, dtype=torch.int64, device=dev)
     rows, colacc = pair_plist.plist_pair(*args, want_energy=want_energy,
-                                         **kw)
+                                         blocks=blocks, evals=evals, **kw)
     assert pair_plist.plist_pair.launches == before + 1
     rows_p, col_p = pair_plist.plist_pair_reference(
         *args, want_energy=want_energy, **kw)
     torch.cuda.synchronize()
+    # the column skip cuts the list's ts x ts slots, never to nothing
+    slots = int((args[0] & 1).sum()) * ts * ts
+    assert 0 < int(evals) <= slots + 3 * 32 * int((args[0] & 1).sum()) \
+        * (ts // 32) ** 2
     np.testing.assert_allclose(rows[:, :3].cpu().numpy(),
                                rows_p[:, :3].cpu().numpy(),
                                rtol=1e-3, atol=5e-2)
@@ -113,17 +113,43 @@ def test_plist_kernel_matches_plain(cuda, ts, want_energy, groups, nowrap,
         np.testing.assert_allclose(float(rows[:, c].double().sum()),
                                    float(rows_p[:, c].double().sum()),
                                    rtol=5e-5, atol=0.05)
-    # the source documents B1 as bitwise deterministic run to run
+    # the source documents B1 as bitwise deterministic run to run; without
+    # ``blocks`` the wrapper cuts the same slices itself
     rows2, col2 = pair_plist.plist_pair(*args, want_energy=want_energy, **kw)
     assert torch.equal(rows, rows2) and torch.equal(colacc, col2)
 
 
+@pytest.mark.parametrize("ts", [32, 64, 96, 128, 256, 384])
+@pytest.mark.parametrize("want_energy", [False, True])
+@pytest.mark.parametrize("groups,nowrap,r_switch", [
+    (False, True, 0.0), (True, False, 0.0), (False, False, 0.9)])
+def test_plist_kernel_matches_plain(cuda, ts, want_energy, groups, nowrap,
+                                    r_switch):
+    args, kw, blocks = _setup(cuda, ts, groups, nowrap)
+    kw["r_switch"] = r_switch
+    _plist_against_plain(cuda, args, kw, blocks, want_energy)
+
+
+@pytest.mark.parametrize("ts,groups", [(384, False), (384, True), (32, True)])
+def test_plist_kernel_many_lj_types(cuda, ts, groups):
+    """40 LJ types: at ts = 384 the tile's LJ rows (384 x 41 [a, b] pairs,
+    126 KB) do not fit the block's shared memory and that call reads them
+    through __ldg; at ts = 32 they fit."""
+    args, kw, blocks = _setup(cuda, ts, groups, False, n_types=40)
+    for want_energy in (False, True):
+        _plist_against_plain(cuda, args, kw, blocks, want_energy)
+
+
 def test_plist_kernel_rejects_bad_input(cuda):
-    args, kw = _setup(cuda, 128, False, False)
+    args, kw, _ = _setup(cuda, 128, False, False)
     bad = list(args)
     bad[4] = args[4].double()
     with pytest.raises(ValueError, match="pos"):
         pair_plist.plist_pair(*bad, **kw)
+    with pytest.raises(ValueError, match="ts"):
+        pair_plist.plist_pair(*args, **dict(kw, ts=48))
+    with pytest.raises(ValueError, match="blocks"):
+        pair_plist.plist_pair(*args, blocks=(args[1], args[1], args[1]), **kw)
 
 
 # ------------------------------------------------------------- kernel B2
@@ -254,7 +280,10 @@ def _recip_system(dev, n, seed):
 
 
 @pytest.mark.parametrize("n,kmax,ts", [(97, (3, 4, 6), 32),
-                                       (3001, (9, 8, 10), 256)])
+                                       (3001, (9, 8, 10), 256),
+                                       (700, (20, 20, 20), 256),
+                                       (130, (0, 2, 1), 32),
+                                       (130, (5, 0, 0), 32)])
 def test_fused_kernels_match_plain(cuda, n, kmax, ts):
     pos, box, q = _recip_system(cuda, n, 21)
     posp, qp, kvec, w, c0, _, kp, _ = ewald_fused._prep(pos, box, q, 2.8,
@@ -268,14 +297,14 @@ def test_fused_kernels_match_plain(cuda, n, kmax, ts):
     np.testing.assert_allclose(e_k, e_p, rtol=2e-5)
     ab = torch.stack([2.0 * c0 * w * s_im, 2.0 * c0 * w * s_re]).contiguous()
     b5 = ewald_fused.recip_forces.launches
-    f = ewald_fused.recip_forces(posp, qp, kvec, ab)
+    f = ewald_fused.recip_forces(posp, qp, kvec, ab, kmax, box)
     assert ewald_fused.recip_forces.launches == b5 + 1
     f_p = ewald_fused.recip_forces_reference(posp, qp, kvec, ab)
     scale = float(f_p.abs().max())
     np.testing.assert_allclose(f.cpu().numpy(), f_p.cpu().numpy(),
                                atol=3e-5 * scale, rtol=2e-4)
     again = ewald_fused.structure_factor(posp, qp, kvec)
-    f2 = ewald_fused.recip_forces(posp, qp, kvec, ab)
+    f2 = ewald_fused.recip_forces(posp, qp, kvec, ab, kmax, box)
     assert torch.equal(again[0], s_re) and torch.equal(again[1], s_im)
     assert torch.equal(f2, f)
 
@@ -306,7 +335,10 @@ def test_fused_kernels_reject_bad_input(cuda):
         ewald_fused.structure_factor(posp, qp.cpu(), kvec)
     with pytest.raises(ValueError, match="ab"):
         ewald_fused.recip_forces(posp, qp, kvec, torch.zeros(
-            (2, kp - 1), device=cuda))
+            (2, kp - 1), device=cuda), (3, 4, 6), box)
+    with pytest.raises(ValueError, match="kmax"):
+        ewald_fused.recip_forces(posp, qp, kvec, torch.zeros(
+            (2, kp), device=cuda), (30, 4, 6), box)
     with pytest.raises(ValueError, match="device"):
         ewald_fused.structure_factor(posp.to("meta"), qp.to("meta"),
                                      kvec.to("meta"))

@@ -20,6 +20,7 @@ from openmm_velocityverlet_tpu_torch.ops import pair_tri as tpt
 from openmm_velocityverlet_tpu_torch.ops.pair_direct import \
     direct_space_tiled
 from tests.test_pallas import _mol_system, _random_tables
+from tests.test_torch_pair import assert_forces_close
 
 BETA, RC = 2.2, 1.2
 E_RTOL = 2e-5
@@ -46,8 +47,7 @@ def _compare(got, ref):
     for x, y in zip(ref[3:5], got[3:5]):
         np.testing.assert_allclose(float(y), float(x), rtol=E_RTOL,
                                    atol=1e-6)
-    np.testing.assert_allclose(got[5].numpy(), np.asarray(ref[5]),
-                               rtol=F_RTOL, atol=F_ATOL)
+    assert_forces_close(got[5].numpy(), np.asarray(ref[5]))
 
 
 @pytest.mark.parametrize("use_groups", [False, True])
@@ -132,8 +132,7 @@ def test_symmetric_branches_match_jax(branch, kw, want_energy):
     if want_energy:
         _compare(got, ref)
     else:
-        np.testing.assert_allclose(got[5].numpy(), np.asarray(ref[5]),
-                                   rtol=F_RTOL, atol=F_ATOL)
+        assert_forces_close(got[5].numpy(), np.asarray(ref[5]))
     assert bool(got[6]) == bool(ref[6]) is False
     assert len(direct_space_tiled(
         torch.as_tensor(pos), torch.as_tensor(box), q, tables, BETA, RC,

@@ -13,7 +13,8 @@ import openmm_velocityverlet_tpu as jpkg
 import openmm_velocityverlet_tpu_torch as tpkg
 from openmm_velocityverlet_tpu.forces import ForceEvaluator as JFE
 from openmm_velocityverlet_tpu.ops import pallas_pair as jpp
-from openmm_velocityverlet_tpu_torch.forces import ForceEvaluator as TFE
+from openmm_velocityverlet_tpu_torch.forces import (PLIST_TILE_SIZES,
+                                                    ForceEvaluator as TFE)
 from openmm_velocityverlet_tpu_torch.models.drude_water import drude_water_box
 from openmm_velocityverlet_tpu_torch.system import system_from_numpy
 from tests.test_smoke import make_lj_fluid
@@ -78,8 +79,14 @@ def test_force_evaluator_matches_jax(kind, jax_pallas_interpret):
     assert (js.exclusions.shape[1] > 3) == (kind == "residual")
     jf = JFE(js, pair_kernel="pallas", pallas_interpret=True, box_hint=box,
              pos_hint=pos, recip="exact")
+    # the port chooses its own tile size (kernel B1 works in warps of 32,
+    # not in 128-lane vectors); with the JAX evaluator's size given, the
+    # sort key, capacity and nowrap axes must come out as the JAX package's
+    auto = TFE(ps, pair_kernel="plist", box_hint=box, pos_hint=pos,
+               device="cpu")
+    assert auto.pair_ts in PLIST_TILE_SIZES and jf.pair_ts in (128, 256, 384)
     tf = TFE(ps, pair_kernel="plist", box_hint=box, pos_hint=pos,
-             device="cpu")
+             pair_ts=jf.pair_ts, device="cpu")
     assert (tf.pair_ts, tf.plist_sort, tf.plist_cap, tf.plist_nowrap) == (
         jf.pair_ts, jf.plist_sort, jf.plist_cap, jf.plist_nowrap)
     bj = jnp.asarray(box, jnp.float32)
@@ -167,13 +174,15 @@ def test_context_trajectory_tracks_jax(path, pos_bound,
 
 @pytest.mark.parametrize("path,n_mol,opts", [
     ("band", 125, dict(fold_exc14=True, pair_ts=32)),
-    ("strict+fused", 27, dict(strict_pairs=True, recip="exact_fused"))])
+    ("strict+fused", 27, dict(strict_pairs=True, recip="exact_fused",
+                              pair_ts=128))])
 def test_context_routes_track_jax(path, n_mol, opts, jax_pallas_interpret):
     """10 middle-scheme TGNH steps on the band route (fold_exc14=True: the
     z-banded sweep of kernel B2, here 16 tiles of 32 atoms and the band
     width both packages size from the start configuration) and on the
-    strict + fused route (the plist sweep with the exact fallback, and the
-    reciprocal through kernels B4/B5), each against the JAX Context with
+    strict + fused route (the plist sweep with the exact fallback, at the
+    JAX package's tile size of 128, and the reciprocal through kernels
+    B4/B5), each against the JAX Context with
     the same options on its Pallas kernels in interpret mode.  Both take
     the force-only pair form in the step, so the plist bound applies:
     max |dpos| < 2e-5 nm per step, terms within 1e-3 relative / 0.5
@@ -238,3 +247,44 @@ def test_flagged_rebuild_is_refit(bad):
     _, f_ref = fresh.energy_forces(st.pos, st.box, want_energy=False)
     np.testing.assert_allclose(f_list.numpy(), f_ref.numpy(),
                                rtol=F_RTOL, atol=F_ATOL)
+
+
+@pytest.mark.parametrize("ts", [32, 64])
+def test_refit_pair_list_small_tiles(ts):
+    """``refit_pair_list`` at the warp-sized tiles: with the capacity made
+    too small and the dearer sort key set, the refit takes the cheaper key
+    and grows the capacity to the candidates of the configuration
+    with the usual margin, never beyond the n_tiles (n_tiles + 1) / 2 tile
+    pairs there are, and the list rebuilt at that capacity is not flagged
+    and gives the forces of a list sized from these positions at
+    construction."""
+    js, pos, box = drude_water_box(216, None, jpkg.SystemBuilder)
+    ps = system_from_numpy(js)
+    pos = _drude_positions(pos)
+    ev = TFE(ps, pair_kernel="plist", box_hint=box, pos_hint=pos, pair_ts=ts,
+             device="cpu")
+    assert ev.pair_ts == ts
+    pt, bt = torch.as_tensor(pos), torch.as_tensor(box, dtype=torch.float32)
+    n_tiles = -(-ps.n_atoms // ts)
+    bound = n_tiles * (n_tiles + 1) // 2
+    assert ev.plist_cap <= bound
+    # the sort key is re-chosen as well: from the dearer one back to the
+    # cheaper one under the evaluator's cost model
+    cost = {key: ev._plist_cost(pos, box, ts, key)[0]
+            for key in ("z", "morton")}
+    ev.plist_sort = max(cost, key=cost.get)
+    ev.plist_cap = 3
+    assert bool(ev.make_pair_cache(pt, bt).overflow)
+    ev.refit_pair_list(pt, bt)
+    assert ev.plist_sort == min(cost, key=cost.get)
+    cache = ev.make_pair_cache(pt, bt)
+    n_active = int((cache.plist & 1).sum())
+    assert not bool(cache.overflow)
+    assert n_active <= ev.plist_cap <= bound
+    assert ev.plist_cap == min(bound, int(n_active * 1.6) + 64)
+    _, f_list = ev.energy_forces(pt, bt, want_energy=False, pair_cache=cache)
+    fresh = TFE(ps, pair_kernel="plist", box_hint=box, pos_hint=pos,
+                pair_ts=ts, device="cpu")
+    _, f_ref = fresh.energy_forces(pt, bt, want_energy=False)
+    np.testing.assert_allclose(f_list.numpy(), f_ref.numpy(), rtol=F_RTOL,
+                               atol=F_ATOL)
