@@ -19,7 +19,10 @@ Phases:
      ForceEvaluator's choice), and with its column skip held on a system
      of four-atom molecules with exclusions; B2 (upper-triangle sweep)
      in the band, band + far, odd and even full sweeps and with folded 1-4
-     exceptions; B4/B5 (fused reciprocal) beside the matmul route, both
+     exceptions, on the layout the evaluator builds (the pair evaluations
+     its skips leave, per pair within the cutoff), with excluded and 1-4
+     pairs moved beyond the skip's reach, and over the admitted tile sizes;
+     B4/B5 (fused reciprocal) beside the matmul route, both
      also against a float64 evaluation on 512 atoms; B3 (the
      rectangular sweep) through its path, direct_space_tiled(symmetric=
      False), and against B1's sweep of the same positions; B6-B8 (gathers)
@@ -87,7 +90,8 @@ PAIR_OPS = 70
 # ex[nx] ey[ny] ez[nz] with q folded into the (nx, ny) factor once a
 # column; the per-atom tables are O(kmax) and not counted): the phase
 # e = exy * ez[nz] is 2 multiplies and 2 multiply-adds (6); then B4 adds it
-# to S_re, S_im (2), and B5 takes g = a c - b s (3), G += g (1) and
+# to S_re, S_im (2; its kernel folds the product and the sum into four
+# multiply-adds, the same 8), and B5 takes g = a c - b s (3), G += g (1) and
 # Gz += g nz (2).  A multiply-add counts 2, as in the card's 67 TFLOP/s.
 B4_OPS, B5_OPS = 8, 12
 # FP32 operations per pair within the cutoff in csrc/rect_pair.cu (the
@@ -425,11 +429,16 @@ def exc14_system(n_mol, seed=3):
 
 def b2_phase(ctx1, system, pos):
     """B2 against its plain version at 19,500 atoms in every enumeration
-    the paths take; returns the bandall force-only numbers (path 2's call)
-    and the worst error over all cases."""
+    the paths take, on the layout the evaluator builds (strips inside each
+    z-sorted tile, with its chunk-pair bitmap); the pair evaluations left by
+    its skips; a case whose excluded and 1-4 pairs lie beyond the skip's
+    reach; the admitted tile sizes beside the host-side model.  Returns the
+    bandall force-only numbers (path 2's call) and the worst error over all
+    cases."""
     import numpy as np
     import torch
     from openmm_velocityverlet_tpu_torch import ForceEvaluator
+    from openmm_velocityverlet_tpu_torch.forces import BAND_TILE_SIZES
     from openmm_velocityverlet_tpu_torch.ops import pair_tri as pt
     dev = torch.device(DEVICE)
     pos = jittered_positions(pos)
@@ -445,21 +454,22 @@ def b2_phase(ctx1, system, pos):
           f"{pt.padded_size(n, ts2) // ts2} tiles, eligible "
           f"{pt.band_eligible(pt.padded_size(n, ts2), ts2, w2)}")
 
-    def layout(ev_tables, ts, z_sorted, charges):
-        n_pad = pt.padded_size(n, ts)
-        st = pt.band_statics(charges, ev_tables, n_pad, dev)
+    def layout(tables, ts, z_sorted, charges, p=posd, b=boxd):
+        """(operands, cmap) of one layout of positions ``p``."""
+        n_pad = pt.padded_size(p.shape[0], ts)
+        st = pt.band_statics(charges, tables, n_pad, dev)
         if z_sorted:
-            f = pt.make_pair_cache(posd, boxd, charges, ev_tables, ts,
-                                   statics=st)
+            f = pt.make_pair_cache(p, b, charges, tables, ts, statics=st,
+                                   inner_order=True)
             oid, perm = f.oid, f.perm
         else:
             f = pt.BandCache(perm=None, invperm=None, oid=None, **st)
             perm = torch.arange(n_pad, device=dev)
             oid = perm.to(torch.int32)
-        p2 = torch.cat([posd, torch.full((n_pad - n, 3), 1e6, device=dev)]
-                       )[perm].contiguous()
+        p2 = torch.cat([p, torch.full((n_pad - p.shape[0], 3), 1e6,
+                                      device=dev)])[perm].contiguous()
         return (p2, f.q, f.ab, f.bits, f.bits14, oid, f.ljt, f.grp, f.grows,
-                boxd)
+                b), f.cmap
 
     t_dim = ev2.pair_tables["arows"].shape[1]
     plist_cache = ctx1.evaluator.make_pair_cache(posd, boxd)
@@ -472,10 +482,12 @@ def b2_phase(ctx1, system, pos):
          ts2, [("bandall", w2, False)], False),
         ("band+far", layout(ev2.pair_tables, ts2, False, system.charges),
          ts2, [("band", 0, False), ("far", 0, False)], False),
-        ("full_sweep odd", (p1, plist_cache.q, plist_cache.ab,
-                            plist_cache.bits, plist_cache.bits,
-                            plist_cache.oid, plist_cache.ljt,
-                            plist_cache.grp, plist_cache.grows, boxd),
+        # the strict fallback's call: the plist layout, the bitmap built by
+        # the wrapper
+        ("full_sweep odd", ((p1, plist_cache.q, plist_cache.ab,
+                             plist_cache.bits, plist_cache.bits,
+                             plist_cache.oid, plist_cache.ljt,
+                             plist_cache.grp, plist_cache.grows, boxd), None),
          ts1, [("bandall", (plist_cache.perm.shape[0] // ts1) // 2, True)],
          False),
         # the unsorted layout: every tile spans the box, so the tile pairs
@@ -490,18 +502,20 @@ def b2_phase(ctx1, system, pos):
                           pos_hint=pos14, device=DEVICE)
     if not ev14.pair_tables["has_exc14"]:
         raise AssertionError("the 1-4 system folded no exception")
-    pos14d = torch.as_tensor(pos14, device=dev)
     box14d = torch.as_tensor(box14, dtype=torch.float32, device=dev)
-    c14 = pt.make_pair_cache(pos14d, box14d, s14.charges, ev14.pair_tables,
-                             ev14.pair_ts)
-    n14 = c14.perm.shape[0]
-    p14 = torch.cat([pos14d, torch.full((n14 - pos14d.shape[0], 3), 1e6,
-                                        device=dev)])[c14.perm].contiguous()
-    cases.append(("has14", (p14, c14.q, c14.ab, c14.bits, c14.bits14,
-                            c14.oid, c14.ljt, c14.grp, c14.grows, box14d),
-                  ev14.pair_ts, [("bandall", ev14.band_w, False)], True))
+    # the same chains with each one's last atom 2.5 nm away, at the body
+    # centre of a lattice cell 4.5 cells along x (clear of the other chains):
+    # its excluded and 1-4 partners lie beyond the cutoff and any chunk's
+    # patch, so only the chunk-pair bitmap keeps them in the sweep
+    pos14_far = pos14.copy()
+    pos14_far[3::4] += np.array([4.5, 0.5, 0.5], np.float32) * 0.55
+    for name, p14 in (("has14", pos14), ("has14 beyond reach", pos14_far)):
+        cases.append((name, layout(ev14.pair_tables, ev14.pair_ts, True,
+                                   s14.charges,
+                                   torch.as_tensor(p14, device=dev), box14d),
+                      ev14.pair_ts, [("bandall", ev14.band_w, False)], True))
     worst, main = 0.0, None
-    for name, args, ts, enums, has14 in cases:
+    for name, (args, cmap), ts, enums, has14 in cases:
         for mode, w, full in enums:
             n_tiles = args[0].shape[0] // ts
             n_pairs = len(pt.tile_pairs(mode, n_tiles, w, full)[0])
@@ -516,24 +530,70 @@ def b2_phase(ctx1, system, pos):
                           want_energy=want_energy, has14=has14)
                 spec = "energy" if want_energy else "force"
                 tag = f"B2 {name}/{mode} {spec}"
+
+                def kernel(evals=None):
+                    return pt.tri_pair(*args, cmap=cmap, evals=evals, **kw)
+
                 err, ms, plain_ms = check_pair_kernel(
-                    tag, lambda: pt.tri_pair(*args, **kw),
-                    lambda: pt.tri_pair_reference(*args, **kw),
+                    tag, kernel, lambda: pt.tri_pair_reference(*args, **kw),
                     E14_RTOL if has14 else E_RTOL)
                 worst = max(worst, err)
-                if name == "bandall" and not want_energy:
-                    rows, colacc = pt.tri_pair(*args, **kw)
-                    pairs = cutoff_pairs(posd, boxd, rc)
+                if want_energy:
+                    if name == "bandall":
+                        main.update(energy_ms=ms, energy_plain_ms=plain_ms,
+                                    energy_device_ms=device_ms(kernel,
+                                                               calls=20))
+                    continue
+                evals = torch.zeros(1, dtype=torch.int64, device=dev)
+                rows, colacc = kernel(evals)
+                pairs = cutoff_pairs(args[0][args[6] >= 0], args[9], rc)
+                slots = n_pairs * ts * ts
+                t_dev = device_ms(kernel, calls=20)
+                print(f"[kernel] B2 {name}/{mode}: {slots / 1e6:.1f} M pair "
+                      f"slots in its enumeration, {int(evals) / 1e6:.2f} M "
+                      f"pair evaluations after its skips, {pairs / 1e6:.3f} "
+                      f"M pairs within the cutoff in the system "
+                      f"({int(evals) / pairs:.2f} evaluations a pair); "
+                      f"device time {t_dev:.4f} ms")
+                if name == "has14 beyond reach":
+                    marked = int(pt.chunk_pair_marked(cmap).sum())
+                    print(f"[kernel] B2 {name}: each chain's 3 excluded "
+                          f"pairs and its 1-4 pair with the moved atom lie "
+                          f"2.5 nm apart (cutoff {rc} nm); {marked} of "
+                          f"{cmap.shape[0] ** 2} chunk pairs are marked and "
+                          f"skip nothing")
+                if name == "bandall":
                     b_ms, b_by = bound(pairs * PAIR_OPS,
                                        nbytes(*args, rows, colacc))
-                    print(f"[kernel] B2 bandall: {n_pairs * ts * ts / 1e6:.1f}"
-                          f" M pair evaluations in its enumeration, "
-                          f"{pairs / 1e6:.3f} M pairs within the cutoff; "
-                          f"bound on those {b_ms:.4f} ms ({b_by})")
                     main = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                bound_by=b_by)
-                if name == "bandall" and want_energy:
-                    main.update(energy_ms=ms, energy_plain_ms=plain_ms)
+                                bound_by=b_by, evaluations=int(evals),
+                                cutoff_pairs=pairs, tile_size=ts,
+                                device_ms=t_dev)
+                    print(f"[kernel] B2 bandall: device time "
+                          f"{main['device_ms']:.4f} ms force; bound on the "
+                          f"cutoff pairs {b_ms:.4f} ms ({b_by}); on its own "
+                          f"evaluations "
+                          f"{bound(int(evals) * PAIR_OPS, 0)[0]:.4f} ms")
+    # the tile sizes the band evaluator chooses from, on the same positions
+    for ts in BAND_TILE_SIZES:
+        ev_s = ForceEvaluator(system, fold_exc14=True, box_hint=box,
+                              pos_hint=pos, pair_ts=ts, device=DEVICE)
+        args, cmap = layout(ev_s.pair_tables, ts, True, system.charges)
+        kw = dict(ts=ts, t_dim=t_dim, beta=beta, r_cutoff=rc, mode="bandall",
+                  band_w=ev_s.band_w, want_energy=False)
+        evals = torch.zeros(1, dtype=torch.int64, device=dev)
+        out = pt.tri_pair(*args, cmap=cmap, evals=evals, **kw)
+        ref = pt.tri_pair_reference(*args, **kw)
+        torch.cuda.synchronize()
+        worst = max(worst, pair_agreement(f"B2 sweep ts={ts}", out, ref,
+                                          E_RTOL))
+        t_dev = device_ms(lambda: pt.tri_pair(*args, cmap=cmap, **kw),
+                          calls=20)
+        print(f"[kernel] B2 sweep: ts={ts} band_w={ev_s.band_w} evaluations="
+              f"{int(evals) / 1e6:.2f} M "
+              f"({int(evals) / main['cutoff_pairs']:.2f} a cutoff pair; the "
+              f"evaluator's cost model {ev_s._band_cost(pos, box, ts, ev_s.band_w) / 1e6:.2f} M) "
+              f"force: {t_dev:.4f} ms device")
     main["max_abs_err"] = worst
     return main
 
@@ -557,10 +617,14 @@ def recip_phase(ctx):
         return float((c0 * torch.sum(w.double() * (s_re.double() ** 2
                                                    + s_im.double() ** 2))))
 
-    s_k = ef.structure_factor(posp, qp, kvec)
+    s_k = ef.structure_factor(posp, qp, kvec, s.kmax, box)
     s_p = ef.structure_factor_reference(posp, qp, kvec)
     ab = torch.stack([2.0 * c0 * w * s_k[1], 2.0 * c0 * w * s_k[0]]
                      ).contiguous()
+
+    def b4():
+        return ef.structure_factor(posp, qp, kvec, s.kmax, box)
+
     def b5():
         return ef.recip_forces(posp, qp, kvec, ab, s.kmax, box)
 
@@ -573,6 +637,16 @@ def recip_phase(ctx):
     sub = slice(0, 512)
     f64 = ef.recip_forces_reference(posp[sub].double(), qp[sub].double(),
                                     kvec.double(), ab.double())
+    s64 = ef.structure_factor_reference(posp[sub].double(), qp[sub].double(),
+                                        kvec.double())
+    s_sub = [ef.structure_factor(posp[sub].contiguous(),
+                                 qp[sub].contiguous(), kvec, s.kmax, box),
+             ef.structure_factor_reference(posp[sub], qp[sub], kvec)]
+    s_errs = [max(float((t[c] - s64[c]).abs().max()) for c in range(2))
+              for t in s_sub]
+    print(f"[kernel] B4 against float64 on 512 atoms: max abs S error "
+          f"kernel {s_errs[0]:.3e}, plain version {s_errs[1]:.3e} (max|S| "
+          f"{float(torch.maximum(s64[0].abs().max(), s64[1].abs().max())):.3f})")
     print(f"[kernel] B5 against float64 on 512 atoms: max abs force error "
           f"kernel {float((f_k[sub] - f64).abs().max()):.3e}, plain version "
           f"{float((f_p[sub] - f64).abs().max()):.3e} (max|F| "
@@ -610,14 +684,14 @@ def recip_phase(ctx):
               f"{'both within' if ok64 else 'NOT within'} tolerance")
         if not ok64:
             raise AssertionError("B4/B5 disagree with their plain versions")
-    again = [(ef.structure_factor(posp, qp, kvec), b5()) for _ in range(2)]
+    again = [(b4(), b5()) for _ in range(2)]
     torch.cuda.synchronize()
     if not all(torch.equal(a[0], s_k[0]) and torch.equal(a[1], s_k[1])
                and torch.equal(f, f_k) for a, f in again):
         raise AssertionError("B4/B5 documented as bitwise deterministic but "
                              "two runs differ")
     t = dict(
-        b4=cuda_time_ms(lambda: ef.structure_factor(posp, qp, kvec)),
+        b4=cuda_time_ms(b4), b4_device=device_ms(b4, calls=20),
         b4_plain=cuda_time_ms(
             lambda: ef.structure_factor_reference(posp, qp, kvec), reps=5),
         b5=cuda_time_ms(b5), b5_device=device_ms(b5, calls=20),
@@ -637,7 +711,8 @@ def recip_phase(ctx):
         p, box, q, s.ewald_beta, s.kmax, chunk=ctx.evaluator.ewald_chunk)),
         reps=10)
     print(f"[kernel] B4/B5: bitwise equal over 3 runs; B4 {t['b4']:.4f} ms "
-          f"(plain {t['b4_plain']:.4f}), B5 {t['b5']:.4f} ms "
+          f"({t['b4_device']:.4f} ms device time; plain "
+          f"{t['b4_plain']:.4f}), B5 {t['b5']:.4f} ms "
           f"({t['b5_device']:.4f} ms device time; plain "
           f"{t['b5_plain']:.4f}); energy + autograd forces: fused route "
           f"{t['fused_route']:.4f} ms, matmul route (ops/ewald.py) "
@@ -1257,15 +1332,18 @@ def main():
          "max_abs_err": b2["max_abs_err"], "ms": b2["ms"],
          "plain_ms": b2["plain_ms"], "bound_ms": b2["bound_ms"],
          "bound_by": b2["bound_by"], "library_ms": None,
-         "energy_ms": b2["energy_ms"],
-         "energy_plain_ms": b2["energy_plain_ms"]},
+         "device_ms": b2["device_ms"], "energy_ms": b2["energy_ms"],
+         "energy_plain_ms": b2["energy_plain_ms"],
+         "energy_device_ms": b2["energy_device_ms"],
+         "tile_size": b2["tile_size"], "evaluations": b2["evaluations"],
+         "cutoff_pairs": b2["cutoff_pairs"]},
         {"name": "ewald_structure", "route": "cuda",
          "source": src + "ewald_fused.cu",
          "replaces": ref + "ewald_pallas.py:77", "launches": l3["B4"],
          "max_abs_err": rc["b4_err"], "ms": rc["b4"],
          "plain_ms": rc["b4_plain"], "bound_ms": rc["b4_bound"][0],
          "bound_by": rc["b4_bound"][1], "library_ms": None,
-         "matmul_route_ms": rc["matmul_route"],
+         "device_ms": rc["b4_device"], "matmul_route_ms": rc["matmul_route"],
          "fused_route_ms": rc["fused_route"]},
         {"name": "ewald_force", "route": "cuda",
          "source": src + "ewald_fused.cu",

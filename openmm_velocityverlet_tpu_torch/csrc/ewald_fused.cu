@@ -12,15 +12,44 @@
 //
 // Design.  The TPU grid runs in order and accumulates S over the atom-tile
 // axis (B4) or F over the k-tile axis (B5) in one resident output block.
-// Here B4 gives each thread one k and each block a chunk of 256 atoms staged
-// in shared memory; the block writes per-chunk partial sums, and a second
-// kernel adds the chunks for each k in ascending order.
-//
-// B5 uses what the list is: the integer lattice nx in [-kmx, kmx], ny in
-// [-kmy, kmy], nz in [0, kmz] in C order with nz fastest, less the
-// non-canonical half of the nz = 0 plane (ops/ewald_fused.py:
+// Both kernels here use what the list is: the integer lattice nx in
+// [-kmx, kmx], ny in [-kmy, kmy], nz in [0, kmz] in C order with nz fastest,
+// less the non-canonical half of the nz = 0 plane (ops/ewald_fused.py:
 // _half_space_modes).  So e^{i k.r} = ex[nx] ey[ny] ez[nz], and an atom needs
-// a few dozen sincosf, not one a mode.  One thread an atom, 128 atoms a
+// a few dozen sincosf, not one a mode.
+//
+// B4 is the contraction S(nx, ny, nz) = sum_i (q_i ex_i[nx] ey_i[ny])
+// ez_i[nz]: for each nx a complex (ny x atoms) . (atoms x nz) product, four
+// multiply-adds a phase and no special function.  The sum runs over atoms,
+// so a thread owns outputs: a register tile of 4 ny x 7 nz complex sums of
+// one nx (56 registers), and its block walks a range of atoms.
+//   * phase_table_kernel writes every atom's axis tables once a call, one
+//     direct sincosf an entry with k_n = (2 pi n) / L rounded exactly as the
+//     list's kvec (no running product, so no error grows along a table; the
+//     rounding of the product k_n x is carried to first order),
+//     negative n the conjugate: about 2 kmx + 2 kmy + kmz entries an atom
+//     (106 at kmax 20), already signed, padded with zeros to whole tiles and
+//     with q folded into the x table, so the main kernel only copies them.
+//   * structure_tile_kernel.  The flattened (nx, group of 4 ny) axis is cut
+//     into "slots"; a block takes sb slots (a multiple of 32) and all nz
+//     groups, thread = (nz group, slot) with the slot fastest, so the lanes
+//     of a warp share their nz group.  For 32 atoms at a time the block
+//     copies its rows of the tables into shared memory (two barriers for 32
+//     atoms).  In the loop a thread reads q ex of its nx (a few addresses a
+//     warp), its four ey as two 16-byte words (rows of odd stride: no bank
+//     conflict) and its 7 ez (one address a warp: a broadcast), forms
+//     A = q ex ey (16 operations, 1/14 of the loop's) and does 112
+//     multiply-adds: 11 FMAs to a shared read.  grid.y cuts the atoms into a
+//     fixed number of ranges, chosen from the shapes and the SM count (two
+//     blocks an SM, which overlap one block's copy with the other's loop).
+//   * structure_reduce_kernel adds the ranges' partial blocks element by
+//     element in ascending range order and writes each sum to its place in
+//     the list (a host-built map; the half plane the list lacks is dropped,
+//     and the pad modes k >= K take the (0, 0, 0) element, sum_i q_i, which
+//     is what the plain version gives at kvec = 0).
+// No atomics: bitwise equal from run to run.
+//
+// B5 turns the same factorisation round: one thread an atom, 128 atoms a
 // block, and a split of the nx range a block (grid.y), so the card is filled.
 // The thread builds its y and z tables with one direct sincosf of k_n * y
 // each (build_phase_table; k_n = (2 pi n) / L rounded exactly as the list's
@@ -37,16 +66,18 @@
 // atom in ascending order.  No atomics: both kernels are bitwise
 // deterministic from run to run.
 //
-// Bound: operations.  B4 takes one full-range sincosf for each of its N K
-// phases (the phase reaches 2 pi kmax ~ 126 rad at kmax 20, where the fast
-// __sincosf intrinsic loses its accuracy, so it is not used) plus a handful
-// of FMAs.  B5 takes 8 FP32 operations a phase and no special function; the
-// bytes moved are O(N + K) plus the partials.  The factorised phase is the
+// Bound: operations.  B4 takes 8 FP32 operations a phase (four
+// multiply-adds) and B5 12, neither a special function in its loop (a table
+// entry's argument reaches 2 pi kmax ~ 126 rad at kmax 20, where the fast
+// __sincosf intrinsic loses its accuracy, so the tables take sincosf); the
+// bytes moved are O(N + K) plus the tables and the partials (B4 at 19,500
+// atoms: 17 MB of tables and 17 MB of partials, small enough to stay in the
+// 50 MB L2).  The factorised phase is the
 // product of three factors whose arguments are each rounded once, where the
 // direct form rounds the three-term sum k.r at up to 126 rad: it is no less
 // exact than the plain version.
 //
-// Tensor cores: the nz sum is a small (atoms x nz) . (nz x columns) product,
+// Tensor cores: both are small matrix products (B4 over atoms, B5 over nz),
 // but TF32 keeps three decimal digits and the reciprocal sum cancels to
 // about 1e-6 of its terms (ops/ewald.py says why it needs float32), so both
 // kernels stay on the FP32 pipes.
@@ -55,63 +86,207 @@
 
 namespace {
 
-constexpr int kAtomChunk = 256;   // B4: atoms per block (= threads per block)
-constexpr int kKThreads = 256;    // B4: k vectors per block
+constexpr int kTileY = 4;         // B4: ny modes of a thread's tile
+constexpr int kTileZ = 7;         // B4: nz modes of a thread's tile
+constexpr int kStageAtoms = 32;   // B4: atoms staged at a time
+constexpr int kMaxTileThreads = 320;  // B4: threads a block, two blocks an SM
 constexpr int kForceThreads = 128;  // B5: atoms per block
 constexpr int kNyBlock = 4;       // B5: ny columns a thread takes at a time
 constexpr int kMaxSmem = 227 * 1024;
 constexpr float kTwoPi = 6.2831855f;  // float32(2 pi), as the k list's
 
-__global__ void __launch_bounds__(kKThreads)
-structure_kernel(const float* pos, const float* q, const float* kvec,
-                 int n_pad, int kp, float* part) {
-  __shared__ float sx[kAtomChunk], sy[kAtomChunk], sz[kAtomChunk],
-      sq[kAtomChunk];
-  const int k = blockIdx.x * kKThreads + threadIdx.x;
-  const int a0 = blockIdx.y * kAtomChunk;
-  const int na = min(kAtomChunk, n_pad - a0);
-  if (threadIdx.x < na) {
-    const int a = a0 + threadIdx.x;
-    sx[threadIdx.x] = pos[3 * a];
-    sy[threadIdx.x] = pos[3 * a + 1];
-    sz[threadIdx.x] = pos[3 * a + 2];
-    sq[threadIdx.x] = q[a];
-  }
-  __syncthreads();
-  if (k >= kp) return;
-  const float kx = kvec[k], ky = kvec[kp + k], kz = kvec[2 * kp + k];
-  float re = 0.f, im = 0.f;
-  for (int a = 0; a < na; ++a) {
-    const float th = sx[a] * kx + sy[a] * ky + sz[a] * kz;
-    float s, c;
-    sincosf(th, &s, &c);
-    re += sq[a] * c;
-    im += sq[a] * s;
-  }
-  float* dst = part + (size_t)blockIdx.y * 2 * kp;
-  dst[k] = re;
-  dst[kp + k] = im;
+// The k value of mode n on an axis of length L, in the list's own rounding
+// (ops/ewald_fused.py:_prep).
+__device__ __forceinline__ float axis_k(int n, float L) {
+  return (kTwoPi * (float)n) / L;
 }
 
-// S(k) = sum of the atom-chunk partials in ascending chunk order.
-__global__ void structure_reduce_kernel(const float* part, int n_chunks,
-                                        int kp, float* s_re, float* s_im) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= kp) return;
-  float re = 0.f, im = 0.f;
-  for (int c = 0; c < n_chunks; ++c) {
-    re += part[(size_t)c * 2 * kp + k];
-    im += part[(size_t)c * 2 * kp + kp + k];
+struct TileParams {
+  const float* pos;    // (n_pad, 3)
+  const float* q;      // (n_pad,)
+  const float* box;    // (3,)
+  float* tab;          // the tables, see phase_table_kernel
+  float2* part;        // (ranges, nzg * 7 * 4 * stot)
+  int kmx, kmy, kmz, n_pad;
+  int n_tab;           // atoms of a table row: n_pad rounded up to 32
+  int sb;              // slots a block
+  int nyg, nzg;        // groups of 4 ny, of 7 nz
+  int stot;            // slots of all blocks (gridDim.x * sb)
+  int atoms_per;       // atoms a range (a multiple of kStageAtoms)
+  int nxr;             // nx values a block's slots can touch
+  int nxp;             // x rows of the table
+};
+
+// The three tables of a call, each row n_tab atoms long:
+//   x: nxp rows of float2, q (cos, sin)(k_nx x) for nx = row - kmx, zero
+//      beyond kmx (rows that only pad slots touch);
+//   z: nzg * 7 rows of float2, (cos, sin)(k_nz z), zero beyond kmz;
+//   y: 2 nyg rows of float4, row g the modes ny = 4 g - kmy and the next as
+//      (cos, sin, cos, sin), row nyg + g the two after, zero beyond kmy.
+// Negative n is the conjugate.  An atom of the padding (>= n_pad) is zero.
+__device__ __forceinline__ float* table_x(const TileParams& p) { return p.tab; }
+__device__ __forceinline__ float* table_z(const TileParams& p) {
+  return p.tab + (size_t)2 * p.nxp * p.n_tab;
+}
+__device__ __forceinline__ float* table_y(const TileParams& p) {
+  return p.tab + (size_t)2 * (p.nxp + p.nzg * kTileZ) * p.n_tab;
+}
+
+// One thread an (atom, table entry): one direct sincosf.
+__global__ void phase_table_kernel(TileParams p) {
+  const int atom = blockIdx.x * blockDim.x + threadIdx.x;
+  if (atom >= p.n_tab) return;
+  const int nzp = p.nzg * kTileZ;
+  int e = blockIdx.y, axis, n, km;
+  float2* dst;
+  if (e < p.nxp) {
+    axis = 0, n = e - p.kmx, km = p.kmx;
+    dst = reinterpret_cast<float2*>(table_x(p)) + (size_t)e * p.n_tab + atom;
+  } else if (e < p.nxp + nzp) {
+    e -= p.nxp;
+    axis = 2, n = e, km = p.kmz;
+    dst = reinterpret_cast<float2*>(table_z(p)) + (size_t)e * p.n_tab + atom;
+  } else {
+    e -= p.nxp + nzp;
+    axis = 1, n = e - p.kmy, km = p.kmy;
+    const int g = e / kTileY, b = e - g * kTileY;
+    dst = reinterpret_cast<float2*>(table_y(p)) +
+          ((size_t)(b >> 1 ? p.nyg + g : g) * p.n_tab + atom) * 2 + (b & 1);
   }
-  s_re[k] = re;
-  s_im[k] = im;
+  float2 v = make_float2(0.f, 0.f);
+  if (atom < p.n_pad && n <= km) {
+    // the argument k x reaches 126 rad at kmax 20, where one float32
+    // rounding is 7.6e-6 rad, and on a lattice many atoms share an x and
+    // with it that error; so the product's rounding residual (exact by fmaf)
+    // is carried to first order
+    const float k = axis_k(n < 0 ? -n : n, p.box[axis]);
+    const float x = p.pos[3 * atom + axis];
+    const float th = k * x;
+    const float dth = fmaf(k, x, -th);
+    float sn, cs;
+    sincosf(th, &sn, &cs);
+    v.x = fmaf(-dth, sn, cs);
+    v.y = fmaf(dth, cs, sn);
+    if (n < 0) v.y = -v.y;
+    if (axis == 0) {
+      const float qa = p.q[atom];
+      v.x *= qa;
+      v.y *= qa;
+    }
+  }
+  *dst = v;
+}
+
+// Dynamic shared memory: y [2 nyg][kStageAtoms + 1] float4 (the odd stride
+// keeps the lanes' 16-byte reads on distinct banks), x [nxr][kStageAtoms + 2]
+// float2, z [nzg * 7][kStageAtoms] float2.
+__global__ void __launch_bounds__(kMaxTileThreads, 2)
+structure_tile_kernel(TileParams p) {
+  extern __shared__ __align__(16) float4 smem_t[];
+  constexpr int CA = kStageAtoms, SY = CA + 1, SX = CA + 2;
+  const int sb = p.sb, nzp = p.nzg * kTileZ, nxr = p.nxr, nyg = p.nyg;
+  float4* sY = smem_t;
+  float2* sX = reinterpret_cast<float2*>(sY + 2 * nyg * SY);
+  float2* sZ = sX + nxr * SX;
+  const int tid = threadIdx.x;
+  const int zg = tid / sb;            // the warp's nz group
+  const int sl = tid - zg * sb;       // slot inside the block
+  const int s = blockIdx.x * sb + sl;
+  const int ix0 = (blockIdx.x * sb) / nyg;  // first x row of the block
+  const int jx = s / nyg - ix0;             // this slot's x row in the block
+  const int g = s - (s / nyg) * nyg;        // its group of 4 ny
+  const float4* gY = reinterpret_cast<const float4*>(table_y(p));
+  const float2* gX = reinterpret_cast<const float2*>(table_x(p)) +
+                     (size_t)ix0 * p.n_tab;
+  const float2* gZ = reinterpret_cast<const float2*>(table_z(p));
+  const int a_begin = blockIdx.y * p.atoms_per;
+  const int a_end = min(p.n_tab, a_begin + p.atoms_per);
+
+  float2 acc[kTileY][kTileZ];
+#pragma unroll
+  for (int b = 0; b < kTileY; ++b)
+#pragma unroll
+    for (int z = 0; z < kTileZ; ++z) acc[b][z] = make_float2(0.f, 0.f);
+
+  const float2* myX = sX + jx * SX;
+  const float4* myLo = sY + g * SY;
+  const float4* myHi = sY + (nyg + g) * SY;
+  const float2* myZ = sZ + zg * kTileZ * CA;
+  for (int a0 = a_begin; a0 < a_end; a0 += CA) {
+    __syncthreads();  // the previous atoms are read out
+    for (int i = tid; i < 2 * nyg * CA; i += blockDim.x) {
+      const int row = i / CA, a = i - row * CA;
+      sY[row * SY + a] = gY[(size_t)row * p.n_tab + a0 + a];
+    }
+    for (int i = tid; i < nxr * CA; i += blockDim.x) {
+      const int row = i / CA, a = i - row * CA;
+      sX[row * SX + a] = gX[(size_t)row * p.n_tab + a0 + a];
+    }
+    for (int i = tid; i < nzp * CA; i += blockDim.x) {
+      const int row = i / CA, a = i - row * CA;
+      sZ[row * CA + a] = gZ[(size_t)row * p.n_tab + a0 + a];
+    }
+    __syncthreads();
+#pragma unroll 2
+    for (int a = 0; a < CA; ++a) {
+      const float2 ex = myX[a];
+      const float4 lo = myLo[a], hi = myHi[a];
+      float2 A[kTileY];
+      A[0] = make_float2(ex.x * lo.x - ex.y * lo.y, ex.x * lo.y + ex.y * lo.x);
+      A[1] = make_float2(ex.x * lo.z - ex.y * lo.w, ex.x * lo.w + ex.y * lo.z);
+      A[2] = make_float2(ex.x * hi.x - ex.y * hi.y, ex.x * hi.y + ex.y * hi.x);
+      A[3] = make_float2(ex.x * hi.z - ex.y * hi.w, ex.x * hi.w + ex.y * hi.z);
+#pragma unroll
+      for (int z = 0; z < kTileZ; ++z) {
+        const float2 e = myZ[z * CA + a];
+#pragma unroll
+        for (int b = 0; b < kTileY; ++b) {
+          acc[b][z].x = fmaf(A[b].x, e.x, fmaf(-A[b].y, e.y, acc[b][z].x));
+          acc[b][z].y = fmaf(A[b].x, e.y, fmaf(A[b].y, e.x, acc[b][z].y));
+        }
+      }
+    }
+  }
+  // the range's partial block, [nz][ny % 4][slot]
+  float2* dst = p.part + (size_t)blockIdx.y * nzp * kTileY * p.stot + s;
+#pragma unroll
+  for (int z = 0; z < kTileZ; ++z)
+#pragma unroll
+    for (int b = 0; b < kTileY; ++b)
+      dst[(size_t)((zg * kTileZ + z) * kTileY + b) * p.stot] = acc[b][z];
+}
+
+// S = the sum of the ranges' partial blocks in ascending range order, each
+// element written to its place in the list (inv: -1 none, -2 the (0, 0, 0)
+// element, which the pad modes k_real .. kp take).
+__global__ void structure_reduce_kernel(const float2* part, const int* inv,
+                                        int n_ranges, int dense, int k_real,
+                                        int kp, float* s_re, float* s_im) {
+  const int d = blockIdx.x * blockDim.x + threadIdx.x;
+  if (d >= dense) return;
+  const int k = inv[d];
+  if (k == -1) return;
+  float re = 0.f, im = 0.f;
+  for (int r = 0; r < n_ranges; ++r) {
+    const float2 v = part[(size_t)r * dense + d];
+    re += v.x;
+    im += v.y;
+  }
+  if (k >= 0) {
+    s_re[k] = re;
+    s_im[k] = im;
+  } else {
+    for (int j = k_real; j < kp; ++j) {
+      s_re[j] = re;
+      s_im[j] = im;
+    }
+  }
 }
 
 // The k values of one axis, n = 0 .. km: (2 pi n) / L in the list's own
 // rounding (ops/ewald_fused.py:_prep), written by the block's first threads.
 __device__ __forceinline__ void stage_axis_k(float* s_k, int km, float L) {
-  for (int n = threadIdx.x; n <= km; n += blockDim.x)
-    s_k[n] = (kTwoPi * (float)n) / L;
+  for (int n = threadIdx.x; n <= km; n += blockDim.x) s_k[n] = axis_k(n, L);
 }
 
 // One axis of a thread's phase table: (cos, sin)(k_n * x), n = 0 .. km, one
@@ -267,10 +442,6 @@ __global__ void force_reduce_kernel(const float* part, int n_splits,
 
 extern "C" {
 
-int ewald_structure_chunks(int n_pad) {
-  return (n_pad + kAtomChunk - 1) / kAtomChunk;
-}
-
 // B5's dynamic shared memory for kmax (see force_kernel).
 static size_t force_smem(int kmx, int kmy, int kmz) {
   return (size_t)(kmy + kmz + 2) * kForceThreads * sizeof(float2) +
@@ -331,20 +502,69 @@ int ewald_force_splits(int kmx, int kmy, int kmz, int n_pad) {
   return (2 * kmx + 1 + per - 1) / per;
 }
 
-// B4: S_re, S_im (kp,) of pos (n_pad, 3), q (n_pad,), kvec (3, kp); part is
-// (ewald_structure_chunks(n_pad), 2, kp) scratch.  Returns cudaGetLastError().
-int ewald_structure_launch(const float* pos, const float* q,
-                           const float* kvec, int n_pad, int kp, float* part,
-                           float* s_re, float* s_im, void* stream) {
-  if (n_pad <= 0 || kp <= 0) return (int)cudaErrorInvalidValue;
+// B4: S_re, S_im (kp,) of pos (n_pad, 3), q (n_pad,) over the half-space
+// list of kmax = (kmx, kmy, kmz) in box (3,), K = k_real modes padded to kp.
+// The tiling (sb .. nxp) and inv come from ops/ewald_fused.py:
+// structure_tiling and _dense_to_list_t; tab is n_tab * (2 nxp + 14 nzg +
+// 8 nyg) floats of scratch (n_tab = n_pad rounded up to 32) and part (ranges,
+// nzg * 7 * 4 * blocks_x * sb) float2 scratch.  Returns cudaGetLastError().
+int ewald_structure_launch(const float* pos, const float* q, const float* box,
+                           float* tab, float* part, const int* inv,
+                           float* s_re, float* s_im, int kmx, int kmy,
+                           int kmz, int n_pad, int kp, int k_real, int sb,
+                           int nyg, int nzg, int blocks_x, int ranges,
+                           int atoms_per, int nxr, int nxp, void* stream) {
+  const int n_tab = (n_pad + kStageAtoms - 1) / kStageAtoms * kStageAtoms;
+  if (n_pad <= 0 || kp <= 0 || kmx < 0 || kmy < 0 || kmz < 0 || sb < 32 ||
+      sb % 32 != 0 || sb * nzg > kMaxTileThreads ||
+      nyg * kTileY < 2 * kmy + 1 || nzg * kTileZ < kmz + 1 ||
+      blocks_x * sb < (2 * kmx + 1) * nyg || ranges < 1 ||
+      atoms_per % kStageAtoms != 0 || (long long)ranges * atoms_per < n_tab ||
+      nxr < (sb - 1) / nyg + 2 || nxp < ((blocks_x - 1) * sb) / nyg + nxr ||
+      k_real > kp)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)2 * nyg * (kStageAtoms + 1) * sizeof(float4) +
+                      (size_t)nxr * (kStageAtoms + 2) * sizeof(float2) +
+                      (size_t)nzg * kTileZ * kStageAtoms * sizeof(float2);
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  static size_t raised = 48 * 1024;  // the most a block may ask so far
+  if (smem > raised) {
+    cudaError_t e = cudaFuncSetAttribute(
+        structure_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    raised = smem;
+  }
+  TileParams p;
+  p.pos = pos;
+  p.q = q;
+  p.box = box;
+  p.tab = tab;
+  p.part = reinterpret_cast<float2*>(part);
+  p.kmx = kmx;
+  p.kmy = kmy;
+  p.kmz = kmz;
+  p.n_pad = n_pad;
+  p.n_tab = n_tab;
+  p.sb = sb;
+  p.nyg = nyg;
+  p.nzg = nzg;
+  p.stot = blocks_x * sb;
+  p.atoms_per = atoms_per;
+  p.nxr = nxr;
+  p.nxp = nxp;
   cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid((kp + kKThreads - 1) / kKThreads,
-                  ewald_structure_chunks(n_pad));
-  structure_kernel<<<grid, kKThreads, 0, st>>>(pos, q, kvec, n_pad, kp, part);
+  phase_table_kernel<<<dim3((n_tab + 255) / 256,
+                            nxp + nzg * kTileZ + nyg * kTileY),
+                       256, 0, st>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  structure_reduce_kernel<<<(kp + 255) / 256, 256, 0, st>>>(
-      part, ewald_structure_chunks(n_pad), kp, s_re, s_im);
+  structure_tile_kernel<<<dim3(blocks_x, ranges), sb * nzg, smem, st>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int dense = nzg * kTileZ * kTileY * p.stot;
+  structure_reduce_kernel<<<(dense + 255) / 256, 256, 0, st>>>(
+      p.part, inv, ranges, dense, k_real, kp, s_re, s_im);
   return (int)cudaGetLastError();
 }
 

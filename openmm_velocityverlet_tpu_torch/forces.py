@@ -41,6 +41,12 @@ from .system import System, resolve_device
 # below (chip_smoke.py's tile-size sweep prints the fit)
 PLIST_TILE_SIZES = (32, 64, 128, 256)
 PLIST_SLOT_COST = 0.6
+# tile sizes the band evaluator chooses from (kernel B2 takes any multiple of
+# 32 up to 768 through ``pair_ts``), and the cost of one item it runs (a row
+# chunk x column chunk of 32 x 32 atoms: a load, a vote and a partial
+# written) in pair evaluations
+BAND_TILE_SIZES = (256, 384, 512, 640, 768)
+BAND_ITEM_COST = 200.0
 
 
 def _drop_constraint_null_terms(system):
@@ -176,18 +182,33 @@ class ForceEvaluator:
                         for key in ("z", "morton")}
                 self.plist_sort = min(cnts, key=cnts.get)
         elif self.pair_mode == "band":
-            # the tile size minimising the banded sweep's pair count (the
-            # band width quantises to whole tiles)
-            best = None
-            for cand in (512, 640, 768):
+            # the tile size minimising kernel B2's cost on the initial
+            # configuration: the pair evaluations left by its two skips (a
+            # host-side model over the layout make_pair_cache would build)
+            # plus BAND_ITEM_COST for every item it runs; without a
+            # configuration, the banded sweep's pair count (the band width
+            # quantises to whole tiles).  The TPU's candidates were 512,
+            # 640 and 768: its tile was a grid step.
+            costs = []
+            for cand in BAND_TILE_SIZES:
                 n_pad = -(-system.n_atoms // cand) * cand
                 w = int(np.ceil(band_atoms / cand)) if band_atoms else 0
-                if w and pair_tri.band_eligible(n_pad, cand, w):
+                eligible = w and pair_tri.band_eligible(n_pad, cand, w)
+                if eligible and have_hint:
+                    cost = self._band_cost(pos_hint, box_hint, cand, w)
+                elif eligible:
                     cost = (n_pad // cand) * (w + 1) * cand * cand
                 else:
                     cost = n_pad * n_pad // 2
-                if best is None or cost < best[0]:
-                    best = (cost, cand)
+                costs.append((cost, cand))
+            # the largest tile within a tenth of the cheapest: a start
+            # configuration is often a lattice, whose planes favour no size
+            # by more than that, and once it has melted the thickest slab
+            # makes the most compact chunks (on the card the 19,500-atom
+            # liquid runs ts 768 a third faster than ts 512, which the
+            # lattice start costs 7% cheaper)
+            best = max((c for c in costs if c[0] <= 1.1 * min(costs)[0]),
+                       key=lambda c: c[1])
             self.pair_ts = best[1]
         else:
             # jointly pick sort key and tile size minimising kernel B1's
@@ -301,13 +322,29 @@ class ForceEvaluator:
         if self.pair_mode == "band":
             return pair_tri.make_pair_cache(
                 self.place_vsites(pos_raw), box, self.t.charges,
-                self.pair_tables, self.pair_ts, statics=self.statics)
+                self.pair_tables, self.pair_ts, statics=self.statics,
+                inner_order=True)
         return pair_plist.make_pair_cache(
             self.place_vsites(pos_raw), box, self.system.charges,
             self.pair_tables, self.pair_ts, mode=self.plist_sort,
             cap=self.plist_cap, rc_cand=self.system.r_cutoff + self.skin,
             inert=self._inert_mask, nowrap=self.plist_nowrap,
             statics=self.statics)
+
+    def _band_cost(self, pos, box, ts, band_w):
+        """Cost of kernel B2's banded sweep at tile size ``ts`` on this
+        configuration: the modelled pair evaluations after its skips plus
+        BAND_ITEM_COST an item (marked chunk pairs left out: they are the
+        same few at every tile size)."""
+        pos = np.asarray(pos, np.float64)
+        order = pair_tri.band_layout_np(pos, box, ts)
+        n = pos.shape[0]
+        real = order < n
+        pos2d = np.concatenate([pos, np.full((order.shape[0] - n, 3),
+                                             1e6)])[order]
+        items, evals = pair_tri.skip_model_np(
+            pos2d, real, box, None, ts, self.system.r_cutoff, band_w=band_w)
+        return evals + BAND_ITEM_COST * items
 
     def _plist_cost(self, pos, box, ts, key):
         """(cost, entries) of kernel B1 over a list of tile size ``ts``

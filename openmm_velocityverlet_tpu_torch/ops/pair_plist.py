@@ -64,8 +64,14 @@ def _pfit(beta: float, r_cutoff: float, deg: int = 10):
     P range of -0.75..-0.05 — far below pairwise force noise.  Valid for
     every in-cutoff pair and every excluded (intramolecular) pair; beyond
     1.05 rc the result is masked (direct) or physically unreachable
-    (exclusions span < 0.7 nm)."""
+    (exclusions span < 0.7 nm).
+
+    A plain-cutoff system (beta = 0) has no Ewald term: the scaled
+    coefficients c_k beta^(2k+3) all vanish, the fit interval collapses to
+    u = 0, and the coefficients returned are zero."""
     import math as _m
+    if beta == 0:
+        return (0.0,) * (deg + 1)
     umax = (1.05 * beta * r_cutoff) ** 2
     u = np.linspace(0.0, umax, 40001)
     x = np.sqrt(u)

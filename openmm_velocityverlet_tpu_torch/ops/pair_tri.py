@@ -21,6 +21,16 @@ once.  ``tri_pair`` runs one enumeration of tile pairs (a "mode"):
 On a CUDA tensor ``tri_pair`` launches kernel B2 (``csrc/tri_pair.cu``);
 on a CPU tensor it takes the plain torch version ``tri_pair_reference``,
 which computes the same ``(rows (n_pad, 8), colacc (8, n_pad))``.
+
+Kernel B2 evaluates a pair only where a vote of its warp finds the column
+in reach of a chunk of 32 consecutive rows.  Two things here are for that
+skip: ``make_pair_cache(inner_order=True)`` orders the slots inside each
+z-sorted tile so that a chunk is a compact rectangle of the tile's slab,
+and ``chunk_pair_map`` marks the chunk pairs that hold an excluded or
+folded 1-4 pair, which the skip must leave alone.  ``skip_model_np`` is a
+numpy model of what the kernel then evaluates.  ``tri_pair`` also has the
+JAX kernel's row-sharded form (``row_off``, ``n_tiles_g``); the
+multi-device sweep that would call it is not ported.
 """
 from __future__ import annotations
 
@@ -54,13 +64,18 @@ class BandCache(NamedTuple):
     ljt: torch.Tensor        # (n_pad,) i32 LJ type, -1 on pad atoms
     grp: torch.Tensor        # (n_pad,) i32 interaction group
     grows: Optional[torch.Tensor]  # (n_pad, G) f32 group rows or None
+    # (n_pad/32, words) i32 bitmap of the 32-atom chunk pairs that hold an
+    # excluded or folded 1-4 pair (``chunk_pair_map``): kernel B2's column
+    # skip leaves those alone
+    cmap: Optional[torch.Tensor] = None
 
 
 def band_statics(charges, tables, n_pad, device):
     """Original-order per-atom columns padded to ``n_pad`` (q, ab, bits,
     bits14, ljt, grp, grows or None) on ``device``: the unsorted layout of
-    the band + far sweep, and the source that ``make_pair_cache`` permutes.
-    Pad atoms carry zero charge, zero LJ rows and type -1.  Build once per
+    the band + far sweep, and the source that ``make_pair_cache`` permutes,
+    with ``cmap``, the marked chunk pairs of that unsorted layout.  Pad
+    atoms carry zero charge, zero LJ rows and type -1.  Build once per
     system and tile size."""
     n = tables["arows"].shape[0]
     pad = n_pad - n
@@ -76,7 +91,11 @@ def band_statics(charges, tables, n_pad, device):
     if has14:
         parts += [tables["a14rows"], tables["b14rows"]]
     groups = tables["grows"] is not None
+    marks = np.asarray(tables["excl_bits"]).astype(np.int64)
+    if has14:
+        marks = marks | np.asarray(tables["exc14_bits"]).astype(np.int64)
     return dict(
+        cmap=chunk_pair_map(col(marks, 0, np.int32), None),
         q=col(np.asarray(charges, np.float32), 0.0, np.float32),
         ab=col(np.concatenate(parts, 1), 0.0, np.float32),
         bits=col(tables["excl_bits"], 0, np.int32),
@@ -93,13 +112,101 @@ def padded_size(n: int, ts: int, tile_multiple: int = 1) -> int:
     return -(-n // blk) * blk
 
 
+def chunk_pair_map(marks, ids):
+    """(n_pad/32, ceil(n_pad/1024)) int32 bitmap over (row chunk, column
+    chunk) of 32 consecutive slots each: bit c of row r is set where some
+    atom of chunk r has an excluded or folded 1-4 partner in chunk c, and
+    for c = r.  ``marks`` (n_pad,) int32 is the union of the exclusion and
+    1-4 masks in layout order (bit d of an atom: its partner is the atom d
+    original indices on); ``ids`` (n_pad,) the original index of each slot
+    (a permutation of 0 .. n_pad - 1), None for the unsorted layout.
+    Kernel B2 never skips a column of a marked chunk pair, tests the masks
+    only there, and takes the minimum image per pair there.  Device ops
+    only, no host synchronisation."""
+    dev = marks.device
+    n_pad = marks.shape[0]
+    nc = n_pad // 32
+    nw = -(-nc // 32)
+    slot = torch.arange(n_pad, device=dev)
+    ids = slot if ids is None else ids.to(torch.int64)
+    inv = torch.empty_like(slot)
+    inv[ids] = slot
+    d = torch.arange(1, MAX_EXCL_OFFSET + 1, device=dev)
+    partner = ids[:, None] + d
+    hit = (((marks.to(torch.int64)[:, None] >> d) & 1) == 1) \
+        & (partner < n_pad)
+    pslot = inv[torch.clamp(partner, max=n_pad - 1)]
+    flat = torch.where(hit, (slot[:, None] // 32) * nc + pslot // 32,
+                       torch.full_like(pslot, nc * nc))
+    mat = torch.zeros(nc * nc + 1, dtype=torch.bool, device=dev)
+    mat[flat.reshape(-1)] = True
+    mat = mat[:-1].reshape(nc, nc)
+    mat = mat | mat.t() | torch.eye(nc, dtype=torch.bool, device=dev)
+    mat = torch.nn.functional.pad(mat, (0, nw * 32 - nc)).reshape(nc, nw, 32)
+    words = torch.sum(mat.to(torch.int64)
+                      << torch.arange(32, device=dev), dim=2)
+    words = torch.where(words >= (1 << 31), words - (1 << 32), words)
+    return words.to(torch.int32).contiguous()
+
+
+def chunk_pair_marked(cmap):
+    """The (n_chunks, n_chunks) bool matrix of a ``chunk_pair_map``."""
+    nc, nw = cmap.shape
+    bit = torch.arange(32, device=cmap.device)
+    return (((cmap.to(torch.int64)[:, :, None] >> bit) & 1) == 1).reshape(
+        nc, nw * 32)[:, :nc]
+
+
+def inner_strips(ts: int) -> int:
+    """Strips along x that the inner order cuts a tile into: the divisor of
+    the tile's ts / 32 chunks nearest to their square root, so that a chunk
+    (a run of a strip along y) is as square a patch as the count allows."""
+    nrc = ts // 32
+    return min((d for d in range(1, nrc + 1) if nrc % d == 0),
+               key=lambda d: (abs(d * d - nrc), d))
+
+
+def _inner_order(perm, pos, box, ts: int):
+    """Reorder the slots inside each tile of a z-sorted ``perm``: the tile's
+    atoms are cut along wrapped x into ``inner_strips(ts)`` strips of equal
+    count and each strip runs along wrapped y, so 32 consecutive slots are a
+    rectangle of the tile's slab.  Stable sorts on float32 keys (a host
+    mirror with numpy's stable sort gives the same order); pads sort last."""
+    n, n_pad = pos.shape[0], perm.shape[0]
+    dev = pos.device
+    xy, bxy = pos[:, :2].to(torch.float32), box[:2]
+    w = xy - bxy * torch.floor(xy / bxy)
+    w = torch.cat([w, torch.full((n_pad - n, 2), 1e30, dtype=torch.float32,
+                                 device=dev)])
+    slot = torch.arange(n_pad, device=dev)
+    strip = slot // ts * inner_strips(ts) \
+        + slot % ts // (ts // inner_strips(ts))
+    for axis, group in ((0, slot // ts), (1, strip)):
+        # lexicographic (group of the slot, coordinate): two stable sorts
+        by_coord = torch.sort(w[perm, axis], stable=True).indices
+        perm = perm[by_coord[torch.sort(group[by_coord],
+                                        stable=True).indices]]
+    return perm
+
+
 def make_pair_cache(pos, box, charges, tables, ts: int,
-                    tile_multiple: int = 1, statics=None) -> BandCache:
+                    tile_multiple: int = 1, statics=None,
+                    inner_order: bool = False) -> BandCache:
     """Sort atoms by wrapped z and permute the static columns.
     ``tile_multiple`` rounds the tile count up to a multiple (the JAX
     row-sharded sweep's layout).  ``perm`` is bit-identical to the JAX
     ``make_pair_cache(mode="z")``: a stable sort on the same float32 keys
-    is ``lax.sort((keys, iota), num_keys=2)``."""
+    is ``lax.sort((keys, iota), num_keys=2)``.
+
+    ``inner_order=True`` then orders the slots inside each tile in strips
+    along x that run along y (``_inner_order``).  A tile keeps its atoms, so the enumeration,
+    ``band_eligible`` and ``band_coverage_bad`` see the same tiles and the
+    sweep differs from the z order only in summation order; but 32
+    consecutive slots, the unit of kernel B2's column skip, are then a
+    compact patch of the tile's slab and not a sheet across the box.  (A
+    2-D Morton curve does not do: a run of 32 points that crosses one of
+    its quadrant boundaries has a bounding box many times the run's area.)
+    The cache carries ``cmap`` (``chunk_pair_map``) for its layout."""
     dev = pos.device
     n = pos.shape[0]
     n_pad = padded_size(n, ts, tile_multiple)
@@ -112,10 +219,14 @@ def make_pair_cache(pos, box, charges, tables, ts: int,
     keys = torch.cat([zw, torch.full((n_pad - n,), 1e30,
                                      dtype=torch.float32, device=dev)])
     perm = torch.sort(keys, stable=True).indices
+    if inner_order:
+        perm = _inner_order(perm, pos, box, ts)
     invperm = torch.empty_like(perm)
     invperm[perm] = torch.arange(n_pad, device=dev)
     grows = statics["grows"]
+    marks = statics["bits"] | statics["bits14"]
     return BandCache(
+        cmap=chunk_pair_map(marks[perm], perm),
         perm=perm, invperm=invperm, q=statics["q"][perm].contiguous(),
         ab=statics["ab"][perm].contiguous(),
         bits=statics["bits"][perm].contiguous(),
@@ -194,18 +305,26 @@ def n_entries(mode: str, n_tiles: int, band_w: int) -> int:
 
 
 def tile_pairs(mode: str, n_tiles: int, band_w: int = 0,
-               full_sweep: bool = False):
+               full_sweep: bool = False, row_off: int = 0,
+               n_tiles_g: int = 0, n_row_tiles: int = 0):
     """(i, j) int64 arrays of the active tile pairs of one enumeration, in
-    the kernel's entry order (the JAX grid order)."""
-    e = np.arange(n_entries(mode, n_tiles, band_w))
+    the kernel's entry order (the JAX grid order).  In the row-sharded form
+    of ``bandall`` the rows are the ``n_row_tiles`` tiles from ``row_off``
+    on, ``i`` is the global row tile and the column wraps on the ring of
+    ``n_tiles_g`` tiles."""
     if mode == "bandall":
-        i, o = e // (band_w + 1), e % (band_w + 1)
-        j = (i + o) % n_tiles
+        ntg = n_tiles_g or n_tiles
+        e = np.arange(n_entries(mode, n_row_tiles or n_tiles - row_off,
+                                band_w))
+        i, o = e // (band_w + 1) + row_off, e % (band_w + 1)
+        j = (i + o) % ntg
         active = np.ones_like(e, bool)
-        if full_sweep and n_tiles % 2 == 0:
-            # offset n_tiles/2 enumerates each unordered pair twice
-            active = (2 * o != n_tiles) | (i < j)
-    elif mode == "band":
+        if full_sweep and ntg % 2 == 0:
+            # offset ntg/2 enumerates each unordered pair twice
+            active = (2 * o != ntg) | (i < j)
+        return i[active], j[active]
+    e = np.arange(n_entries(mode, n_tiles, band_w))
+    if mode == "band":
         i = e // 2
         j = i + e % 2
         active = j < n_tiles
@@ -215,27 +334,49 @@ def tile_pairs(mode: str, n_tiles: int, band_w: int = 0,
     return i[active], j[active]
 
 
+def _row_tiles(mode, n_tiles, row_off, n_tiles_g, n_row_tiles) -> int:
+    """The number of row tiles of one call, after checking the row-sharded
+    arguments (``bandall`` only)."""
+    if not (row_off or n_tiles_g or n_row_tiles):
+        return n_tiles
+    if mode != "bandall":
+        raise ValueError("tri_pair: row_off / n_tiles_g / n_row_tiles "
+                         "belong to the bandall mode")
+    n_rt = n_row_tiles or n_tiles - row_off
+    if row_off < 0 or n_rt < 1 or row_off + n_rt > n_tiles \
+            or not 0 <= n_tiles_g <= n_tiles:
+        raise ValueError(
+            f"tri_pair: row tiles [{row_off}, {row_off + n_rt}) on a ring "
+            f"of {n_tiles_g} do not fit {n_tiles} tiles")
+    return n_rt
+
+
 def tri_pair_reference(pos, q, ab, bits, bits14, oid, ljt, grp, grows, box,
                        *, ts, t_dim, beta, r_cutoff, mode, band_w=0,
                        full_sweep=False, want_energy=True, has14=False,
-                       r_switch=0.0):
+                       r_switch=0.0, row_off=0, n_tiles_g=0, n_row_tiles=0):
     """Plain torch version of kernel B2 (the JAX ``_pair_tri_kernel``):
     the same ``(rows (n_pad, 8), colacc (8, n_pad))`` from the same inputs,
     vectorised over batches of tile pairs as (ts, ts) blocks.  rows hold
     fx, fy, fz, e_lj, e_coul, e_corr, e14_coul, e14_lj; colacc rows 0..2
-    the Newton reaction (none on a diagonal tile)."""
+    the Newton reaction (none on a diagonal tile).  It evaluates every pair
+    of the enumeration: it is the oracle of the kernel's column skip, not a
+    model of it.  ``row_off`` / ``n_tiles_g`` / ``n_row_tiles``: see
+    ``tri_pair``."""
     if mode not in MODES:
         raise ValueError(f"tri_pair: unknown mode {mode!r}")
     dev = pos.device
     n_pad = pos.shape[0]
     n_tiles = n_pad // ts
+    n_rt = _row_tiles(mode, n_tiles, row_off, n_tiles_g, n_row_tiles)
     test_excl = mode != "far"
     sc = _kernel_scalars(beta, r_cutoff)
-    i_np, j_np = tile_pairs(mode, n_tiles, band_w, full_sweep)
-    rows = torch.zeros((n_tiles, ts, 8), dtype=torch.float32, device=dev)
+    i_np, j_np = tile_pairs(mode, n_tiles, band_w, full_sweep, row_off,
+                            n_tiles_g, n_row_tiles)
+    rows = torch.zeros((n_rt, ts, 8), dtype=torch.float32, device=dev)
     cols = torch.zeros((n_tiles, ts, 3), dtype=torch.float32, device=dev)
     if i_np.size == 0:
-        return rows.reshape(n_pad, 8), torch.zeros(
+        return rows.reshape(n_rt * ts, 8), torch.zeros(
             (8, n_pad), dtype=torch.float32, device=dev)
     pos_t = pos.reshape(n_tiles, ts, 3)
     q_t = q.reshape(n_tiles, ts)
@@ -330,13 +471,119 @@ def tri_pair_reference(pos, q, ab, bits, bits14, oid, ljt, grp, grows, box,
                 torch.where(in_range, e_lj, zero), dim=2)
             blk[:, :, 4] = half * torch.sum(
                 torch.where(in_range, e_c, zero), dim=2)
-        rows.index_add_(0, ti, blk)
+        rows.index_add_(0, ti - row_off, blk)
         g = -torch.sum(fd, dim=1)                         # (E,ts,3)
         g = torch.where(diag[:, None, None], torch.zeros_like(g), g)
         cols.index_add_(0, tj, g)
     colacc = torch.zeros((8, n_pad), dtype=torch.float32, device=dev)
     colacc[:3] = cols.reshape(n_pad, 3).t()
-    return rows.reshape(n_pad, 8), colacc
+    return rows.reshape(n_rt * ts, 8), colacc
+
+
+def tri_tiling(mode: str, ts: int, n_tiles: int, band_w: int = 0):
+    """How kernel B2 cuts one enumeration, from the shapes alone: returns
+    (n_ept entries a row tile, n_items items a row chunk, splits, per).  An
+    item is (entry, column chunk of 32 atoms); a row chunk's items go to
+    ``splits`` warps of ``per`` consecutive items each, about 16 a warp, so
+    that a wide band or the full sweep does not hang on one warp."""
+    n_ept = n_entries(mode, 1, band_w) if mode != "far" else n_tiles
+    n_items = n_ept * (ts // 32)
+    splits = max(1, min(64, -(-n_items // 16)))
+    return n_ept, n_items, splits, -(-n_items // splits)
+
+
+def _chunk_boxes_np(pos, real, box):
+    """Centre, half extent (grown by 0.001 nm) and non-emptiness of every
+    32-slot chunk's bounding box over its real atoms, in the frame of the
+    chunk's first real atom, and the positions in that frame: the numpy
+    mirror of csrc/tri_pair.cu:chunk_box."""
+    nc = pos.shape[0] // 32
+    p = pos.reshape(nc, 32, 3)
+    r = real.reshape(nc, 32)
+    first = np.argmax(r, axis=1)
+    f = p[np.arange(nc), first][:, None, :]
+    w = p - box * np.round((p - f) / box)
+    lo = np.where(r[:, :, None], w, np.inf).min(axis=1)
+    hi = np.where(r[:, :, None], w, -np.inf).max(axis=1)
+    any_ = r.any(axis=1)
+    mid = np.where(any_[:, None], 0.5 * (lo + hi), 0.0)
+    half = np.where(any_[:, None], 0.5 * (hi - lo) + 1e-3, 0.0)
+    return mid, half, any_, w.reshape(-1, 3)
+
+
+def skip_model_np(pos, real, box, marked, ts: int, r_cutoff: float,
+                  mode: str = "bandall", band_w: int = 0,
+                  full_sweep: bool = False, visited=None):
+    """A host-side (numpy) model of what kernel B2 evaluates on a layout
+    after its two skips: returns (items, evaluations), the items (row chunk,
+    column chunk of an enumerated tile pair) it runs and the pair
+    evaluations it makes in them (columns kept by the vote, rounded up to
+    its rounds of four, times 32 rows).  ``pos`` (n_pad, 3) are the
+    layout's positions, ``real`` (n_pad,) bool its non-pad slots,
+    ``marked`` the (n_chunks, n_chunks) bool matrix of its
+    ``chunk_pair_map`` (None: no marked pair, the far mode).  An item runs
+    when it is marked or the two chunk boxes come within the cutoff; in it
+    a column is kept when the item is marked or the column lies within the
+    cutoff of the row chunk's box.  ``visited``, an (n_pad, n_pad) bool
+    array, is filled with the (row, column) pairs evaluated (small systems:
+    the tests hold it against the pairs that must not be dropped).
+    ``ForceEvaluator`` costs its band tile sizes with it."""
+    pos = np.asarray(pos, np.float64)
+    box = np.asarray(box, np.float64).reshape(3)
+    real = np.asarray(real, bool)
+    n_pad = pos.shape[0]
+    nrc = ts // 32
+    mid, half, any_, _ = _chunk_boxes_np(pos, real, box)
+    rc2 = r_cutoff * r_cutoff * 1.0001
+    ti, tj = tile_pairs(mode, n_pad // ts, band_w, full_sweep)
+    chunk = np.arange(nrc)
+    items = evaluations = 0
+    cols = pos.reshape(-1, 32, 3)
+    for i in np.unique(ti):
+        cg = (tj[ti == i][:, None] * nrc + chunk).reshape(-1)  # col chunks
+        for rg in i * nrc + chunk:
+            u = mid[cg] - mid[rg]
+            u -= box * np.round(u / box)
+            gap = np.maximum(np.abs(u) - half[rg] - half[cg], 0.0)
+            mk = marked[rg, cg] if marked is not None \
+                else np.zeros(cg.shape, bool)
+            run = mk | (any_[cg] & any_[rg] & ((gap * gap).sum(-1) <= rc2))
+            c_run, m_run = cg[run], mk[run]
+            items += int(run.sum())
+            v = cols[c_run] - mid[rg]
+            v -= box * np.round(v / box)
+            g = np.maximum(np.abs(v) - half[rg], 0.0)
+            keep = (m_run[:, None] | ((g * g).sum(-1) <= rc2)) \
+                & real.reshape(-1, 32)[c_run]
+            evaluations += int((-(-keep.sum(axis=1) // 4) * 4).sum()) * 32
+            if visited is not None:
+                col_idx = (c_run[:, None] * 32 + np.arange(32))[keep]
+                visited[rg * 32:(rg + 1) * 32, col_idx] = True
+    return items, evaluations
+
+
+def band_layout_np(pos, box, ts: int, inner_order: bool = True):
+    """Host-side (numpy) mirror of ``make_pair_cache``'s layout: the
+    (n_pad,) slot -> atom order (pads are n .. n_pad - 1), with the keys
+    taken in float32 as on the device."""
+    p32 = np.asarray(pos, np.float32)
+    b32 = np.asarray(box, np.float32).reshape(3)
+    n = p32.shape[0]
+    n_pad = padded_size(n, ts)
+    zw = p32[:, 2] - b32[2] * np.floor(p32[:, 2] / b32[2])
+    keys = np.concatenate([zw, np.full(n_pad - n, 1e30, np.float32)])
+    order = np.argsort(keys, kind="stable")
+    if inner_order:
+        w = p32[:, :2] - b32[:2] * np.floor(p32[:, :2] / b32[:2])
+        w = np.concatenate([w, np.full((n_pad - n, 2), 1e30, np.float32)])
+        slot = np.arange(n_pad)
+        strip = slot // ts * inner_strips(ts) \
+            + slot % ts // (ts // inner_strips(ts))
+        for axis, group in ((0, slot // ts), (1, strip)):
+            by_coord = np.argsort(w[order, axis], kind="stable")
+            order = order[by_coord[np.argsort(group[by_coord],
+                                              kind="stable")]]
+    return order
 
 
 def _launcher():
@@ -345,9 +592,9 @@ def _launcher():
     lib = kernels.load("tri_pair")
     if lib.tri_pair_launch.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.tri_pair_launch.argtypes = [
-            P, P, P, I, I, P, P, P, I, P, P, P, P, I, I, I, I, I, I, I,
-            F, F, F, F, F, F, ctypes.POINTER(F), P, P, P, P, P]
+        lib.tri_pair_launch.argtypes = (
+            [P, P, P, I, I, P, P, P, I, P, P, P, P, P] + [I] * 13
+            + [F] * 6 + [ctypes.POINTER(F)] + [P] * 8)
         lib.tri_pair_launch.restype = I
         lib.tri_pair_error_string.argtypes = [I]
         lib.tri_pair_error_string.restype = ctypes.c_char_p
@@ -365,17 +612,34 @@ def _check(t, name, dtype, shape, device):
 
 def tri_pair(pos, q, ab, bits, bits14, oid, ljt, grp, grows, box, *, ts,
              t_dim, beta, r_cutoff, mode, band_w=0, full_sweep=False,
-             want_energy=True, has14=False, r_switch=0.0):
+             want_energy=True, has14=False, r_switch=0.0, row_off=0,
+             n_tiles_g=0, n_row_tiles=0, cmap=None, evals=None):
     """One tile-pair enumeration of the upper-triangle sweep: returns
     (rows (n_pad, 8), colacc (8, n_pad)).
 
     On a CUDA tensor this launches kernel B2 (``csrc/tri_pair.cu``) on the
     current stream and counts the launch in ``tri_pair.launches``; on a
     CPU tensor it runs ``tri_pair_reference``.  There is no fallback: a
-    CUDA call the kernel cannot take raises."""
+    CUDA call the kernel cannot take raises.  ``ts`` is a multiple of 32 up
+    to 768.
+
+    The row-sharded form (``bandall`` only, the JAX ``row_off`` /
+    ``n_tiles_g``): the call's rows are the ``n_row_tiles`` tiles from
+    global tile ``row_off`` on (0: all the rest), the column tile wraps on
+    the ring of ``n_tiles_g`` tiles (0: all), the dedup guard and the
+    diagonal go by the global row tile; every input stays full-length, rows
+    comes back ``(n_row_tiles * ts, 8)`` and colacc full-length, to be
+    summed over the shards.
+
+    ``cmap`` is the layout's ``chunk_pair_map`` (a cache or
+    ``band_statics`` carries it; built here from the masks when not given;
+    unused in the ``far`` mode and on the CPU).  ``evals``, a one-element
+    int64 CUDA tensor, has the kernel add the pair evaluations it makes
+    after its column skip (a measurement aid; the CPU version ignores it)."""
     kw = dict(ts=ts, t_dim=t_dim, beta=beta, r_cutoff=r_cutoff, mode=mode,
               band_w=band_w, full_sweep=full_sweep, want_energy=want_energy,
-              has14=has14, r_switch=r_switch)
+              has14=has14, r_switch=r_switch, row_off=row_off,
+              n_tiles_g=n_tiles_g, n_row_tiles=n_row_tiles)
     dev = pos.device
     if dev.type == "cpu":
         return tri_pair_reference(pos, q, ab, bits, bits14, oid, ljt, grp,
@@ -392,9 +656,10 @@ def tri_pair(pos, q, ab, bits, bits14, oid, ljt, grp, grows, box, *, ts,
         raise ValueError(f"tri_pair: {n_pad} atoms is not a whole number "
                          f"of {ts}-atom tiles")
     n_tiles = n_pad // ts
-    if mode == "bandall" and not 0 <= band_w < max(n_tiles, 1):
+    n_rt = _row_tiles(mode, n_tiles, row_off, n_tiles_g, n_row_tiles)
+    if mode == "bandall" and not 0 <= band_w < max(n_tiles_g or n_tiles, 1):
         raise ValueError(f"tri_pair: band_w {band_w} out of range for "
-                         f"{n_tiles} tiles")
+                         f"{n_tiles_g or n_tiles} tiles")
     i32, f32 = torch.int32, torch.float32
     ab_w = (4 if has14 else 2) * t_dim
     _check(pos, "pos", f32, (n_pad, 3), dev)
@@ -409,12 +674,27 @@ def tri_pair(pos, q, ab, bits, bits14, oid, ljt, grp, grows, box, *, ts,
     if grows is not None:
         _check(grows, "grows", f32, (n_pad, grows.shape[1]), dev)
     _check(box, "box", f32, (3,), dev)
+    n_chunks = n_pad // 32
+    if mode == "far":
+        cmap = None
+    elif cmap is None:
+        cmap = chunk_pair_map(bits | bits14 if has14 else bits,
+                              None if mode == "band" else oid)
+    if cmap is not None:
+        _check(cmap, "cmap", i32, (n_chunks, -(-n_chunks // 32)), dev)
+    if evals is not None:
+        _check(evals, "evals", torch.int64, (1,), dev)
     sc = _kernel_scalars(beta, r_cutoff)
-    n_ent = n_entries(mode, n_tiles, band_w)
-    rows = torch.empty((n_pad, 8), dtype=f32, device=dev)
+    _, n_items, splits, per = tri_tiling(mode, ts, n_tiles, band_w)
+    n_row_chunks = n_rt * (ts // 32)
+    rows = torch.empty((n_rt * ts, 8), dtype=f32, device=dev)
     colacc = torch.empty((8, n_pad), dtype=f32, device=dev)
-    prow = torch.empty((n_ent, 8, ts), dtype=f32, device=dev)
-    pcol = torch.empty((n_ent, 3, ts), dtype=f32, device=dev)
+    cbox = torch.empty((n_chunks, 8), dtype=f32, device=dev)
+    prow = torch.empty((n_row_chunks * splits, 8, 32), dtype=f32, device=dev)
+    pcol = torch.empty((n_row_chunks * n_items, 3, 32), dtype=f32,
+                       device=dev)
+    iflag = torch.empty(n_row_chunks * n_items, dtype=torch.uint8,
+                        device=dev)
     pcoef = (ctypes.c_float * len(sc["pcoef"]))(*sc["pcoef"])
     lib = _launcher()
     err = lib.tri_pair_launch(
@@ -422,11 +702,16 @@ def tri_pair(pos, q, ab, bits, bits14, oid, ljt, grp, grows, box, *, ts,
         ljt.data_ptr(), grp.data_ptr(),
         None if grows is None else grows.data_ptr(),
         0 if grows is None else grows.shape[1], bits.data_ptr(),
-        bits14.data_ptr(), oid.data_ptr(), box.data_ptr(), n_pad, ts,
+        bits14.data_ptr(), oid.data_ptr(), box.data_ptr(),
+        None if cmap is None else cmap.data_ptr(),
+        0 if cmap is None else cmap.shape[1], n_pad, ts,
         MODES.index(mode), int(band_w), int(bool(full_sweep)),
-        int(bool(want_energy)), int(bool(has14)), float(beta), sc["rc2"],
+        int(bool(want_energy)), int(bool(has14)), int(row_off),
+        int(n_tiles_g), n_rt, splits, per, float(beta), sc["rc2"],
         float(r_cutoff), float(r_switch), _CAP3, sc["gauss_pref"], pcoef,
-        prow.data_ptr(), pcol.data_ptr(), rows.data_ptr(), colacc.data_ptr(),
+        cbox.data_ptr(), prow.data_ptr(), pcol.data_ptr(), iflag.data_ptr(),
+        rows.data_ptr(), colacc.data_ptr(),
+        None if evals is None else evals.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError("tri_pair kernel launch failed: "
@@ -440,7 +725,7 @@ tri_pair.launches = 0
 
 def run_tri(pos, q, ab, bits, bits14, oid, ljt, grp, grows, box, *, ts,
             t_dim, beta, r_cutoff, has14, band_w=0, want_energy=True,
-            full_sweep=False, r_switch=0.0):
+            full_sweep=False, r_switch=0.0, cmap=None):
     """The dispatch of the JAX ``_run_tri``: the full sweep
     (``bandall`` with band_w = n_tiles // 2) when ``full_sweep``, else
     ``bandall`` at ``band_w`` when the band is eligible, else ``band`` +
@@ -448,7 +733,8 @@ def run_tri(pos, q, ab, bits, bits14, oid, ljt, grp, grows, box, *, ts,
     n_tiles = pos.shape[0] // ts
     args = (pos, q, ab, bits, bits14, oid, ljt, grp, grows, box)
     kw = dict(ts=ts, t_dim=t_dim, beta=beta, r_cutoff=r_cutoff,
-              want_energy=want_energy, has14=has14, r_switch=r_switch)
+              want_energy=want_energy, has14=has14, r_switch=r_switch,
+              cmap=cmap)
     if full_sweep:
         return tri_pair(*args, mode="bandall", band_w=n_tiles // 2,
                         full_sweep=True, **kw)
@@ -490,7 +776,7 @@ def direct_space_band(pos, box, charges, tables, beta, r_cutoff, ts: int,
     if use_band:
         if cache is None:
             cache = make_pair_cache(pos, box, charges, tables, ts,
-                                    statics=statics)
+                                    statics=statics, inner_order=True)
         f = cache
         pos2d = pos2d[cache.perm]
         flag = band_coverage_bad(pos, box, cache, ts, band_w, r_cutoff)
@@ -509,7 +795,7 @@ def direct_space_band(pos, box, charges, tables, beta, r_cutoff, ts: int,
         pos2d, f.q, f.ab, f.bits, f.bits14, oid, f.ljt, f.grp, f.grows, box,
         ts=ts, t_dim=t_dim, beta=beta, r_cutoff=r_cutoff, has14=has14,
         band_w=band_w if use_band else 0, want_energy=want_energy,
-        full_sweep=full, r_switch=r_switch)
+        full_sweep=full, r_switch=r_switch, cmap=f.cmap)
     if use_band:
         forces = (rows[:, :3] + colacc[:3, :].t())[cache.invperm][:n]
     else:

@@ -405,3 +405,297 @@ def test_force_evaluator_fold_exc14_matches_jax(jax_pallas_interpret):
                 assert abs(float(t_unf[k])) > 1.0
                 np.testing.assert_allclose(float(tt[k]), float(t_unf[k]),
                                            rtol=5e-5, atol=0.05, err_msg=k)
+
+
+# ---------------------------------------------- the row-sharded form of B2
+@pytest.mark.parametrize("n_mol,full", [(384, False), (384, True),
+                                        (352, False), (352, True)])
+def test_row_sharded_halves_sum_to_unsharded(n_mol, full):
+    """``row_off`` / ``n_row_tiles``: two calls over the two halves of the
+    row tiles (12 tiles even, 11 odd; the band at W = 3 and the full sweep
+    with its dedup guard on the global row tile) give the unsharded rows,
+    and their column accumulators add up to the unsharded one."""
+    tables, pos, box, q = _system(n_mol, has14=True)
+    _, targs = _layouts(tables, pos, box, q, 128, True)
+    n_tiles = targs[0].shape[0] // 128
+    kw = dict(ts=128, t_dim=tables["arows"].shape[1], beta=BETA,
+              r_cutoff=RC, has14=True, mode="bandall", full_sweep=full,
+              band_w=n_tiles // 2 if full else 3)
+    rows, col = tpt.tri_pair(*targs, **kw)
+    h = n_tiles // 2
+    r0, c0 = tpt.tri_pair(*targs, row_off=0, n_row_tiles=h,
+                          n_tiles_g=n_tiles, **kw)
+    r1, c1 = tpt.tri_pair(*targs, row_off=h, n_row_tiles=n_tiles - h,
+                          n_tiles_g=n_tiles, **kw)
+    assert r0.shape == (h * 128, 8) and c0.shape == col.shape
+    np.testing.assert_array_equal(torch.cat([r0, r1]).numpy(), rows.numpy())
+    assert_forces_close((c0 + c1)[:3].numpy().T, col[:3].numpy().T)
+    assert float(col[:3].abs().max()) > 1.0
+    with pytest.raises(ValueError, match="row"):
+        tpt.tri_pair(*targs, row_off=h, n_row_tiles=n_tiles, **kw)
+    with pytest.raises(ValueError, match="bandall"):
+        tpt.tri_pair(*targs, **dict(kw, mode="far", row_off=1))
+
+
+@pytest.mark.parametrize("full,row_off", [(False, 6), (True, 6), (False, 0)])
+def test_row_sharded_half_matches_jax(full, row_off):
+    """One half of the row tiles against the JAX ``_tri_call(row_off=,
+    n_tiles_g=)`` in interpret mode: local row blocks, full-length column
+    tables, at the tolerances of test_run_tri_matches_jax."""
+    tables, pos, box, q = _system(384, has14=True)
+    jargs, targs = _layouts(tables, pos, box, q, 128, True)
+    n_tiles, half, ts = 12, 6, 128
+    w = n_tiles // 2 if full else 3
+    sl = slice(row_off * ts, (row_off + half) * ts)
+    rows_args = tuple(a[sl] for a in jargs[:7])
+    rows_j, col_j = jpp._tri_call(
+        "bandall", (half, w + 1), *rows_args, *jargs[7:], BETA, RC, ts,
+        pos.shape[0], tables["arows"].shape[1], True, True,
+        want_energy=True, full_sweep=full,
+        row_off=jnp.asarray([row_off], jnp.int32), n_tiles_g=n_tiles)
+    rows_t, col_t = tpt.tri_pair(
+        *targs, ts=ts, t_dim=tables["arows"].shape[1], beta=BETA,
+        r_cutoff=RC, has14=True, mode="bandall", band_w=w, full_sweep=full,
+        row_off=row_off, n_row_tiles=half, n_tiles_g=n_tiles)
+    rows_j, col_j = np.asarray(rows_j), np.asarray(col_j)
+    assert rows_t.shape == rows_j.shape
+    assert_forces_close(rows_t[:, :3].numpy(), rows_j[:, :3])
+    assert_forces_close(col_t[:3].numpy().T, col_j[:3].T)
+    for c in range(3, 8):
+        np.testing.assert_allclose(float(rows_t[:, c].double().sum()),
+                                   float(rows_j[:, c].astype(float).sum()),
+                                   rtol=5e-5, atol=1e-3, err_msg=str(c))
+
+
+# ------------------------------------------------- a plain-cutoff system
+def _lj_fluid(n_side=8, spacing=0.4, charge=0.0):
+    """An argon-like fluid without Ewald (``use_pme=False``: ewald_beta 0),
+    the layout of tests/test_smoke.make_lj_fluid, jittered off its
+    lattice."""
+    b = tpkg.SystemBuilder()
+    for i in range(n_side ** 3):
+        b.add_particle(39.948, charge=charge * (-1) ** i, lj_type=0)
+    b.set_lj_from_type_params([0.34], [0.996])
+    box = np.array([n_side * spacing] * 3)
+    pos = np.stack(np.meshgrid(*[np.arange(n_side) * spacing + spacing / 2]
+                               * 3, indexing="ij"), -1).reshape(-1, 3)
+    pos = pos + np.random.default_rng(2).normal(0, 0.02, pos.shape)
+    system = b.finalize(box, r_cutoff=0.75, use_pme=False)
+    return system, pos.astype(np.float32), box
+
+
+@pytest.mark.parametrize("charge", [0.0, 0.3])
+def test_no_ewald_fluid_builds_and_matches_dense(charge):
+    """ewald_beta 0: the Chebyshev fit has nothing to fit and returns zero
+    coefficients, so the plist sweep and the band sweep build and give the
+    dense sweep's forces and energies."""
+    system, pos, box = _lj_fluid(charge=charge)
+    assert system.ewald_beta == 0
+    assert tpp._pfit(0.0, 0.75) == (0.0,) * 11
+    assert tpp._pfit_scaled(0.0, 0.75) == (0.0,) * 11
+    p, bt = torch.as_tensor(pos), torch.as_tensor(box, dtype=torch.float32)
+    dense = TFE(system, pair_kernel="dense", device="cpu")
+    plist = TFE(system, box_hint=box, pos_hint=pos, pair_ts=32, device="cpu")
+    band = TFE(system, box_hint=box, pos_hint=pos, pair_ts=32,
+               fold_exc14=True, device="cpu")
+    assert plist.pair_mode == "plist" and band.pair_mode == "band"
+    assert band.uses_band
+    for want_energy in (True, False):
+        td, fd = dense.energy_forces(p, bt, want_energy=want_energy)
+        for ev in (plist, band):
+            te, fe = ev.energy_forces(p, bt, want_energy=want_energy)
+            assert_forces_close(fe.numpy(), fd.numpy())
+            if want_energy:
+                for k in ("lj", "coul_direct", "coul_excl_corr"):
+                    np.testing.assert_allclose(float(te[k]), float(td[k]),
+                                               rtol=5e-5, atol=1e-3,
+                                               err_msg=k)
+    assert abs(float(td["lj"])) > 1.0
+
+
+# ------------------------------------ kernel B2's layout and column skip
+def _sorted_layout(tables, pos, box, q, ts, inner_order=True):
+    tc = tpt.make_pair_cache(_t(pos), _t(box), q, tables, ts,
+                             inner_order=inner_order)
+    n = pos.shape[0]
+    pos2d = np.concatenate([pos, np.full((tc.perm.shape[0] - n, 3), 1e6,
+                                         np.float32)])[tc.perm.numpy()]
+    return tc, pos2d
+
+
+def test_inner_order_keeps_jax_tiles_and_coverage():
+    """inner_order=True reorders slots inside each z-sorted tile in strips
+    along x that run along y: every tile holds the same atoms as the JAX cache's,
+    pads stay last, the coverage flag is the JAX one on fresh, stale and
+    undersized bands, the sweep gives the z order's forces and energies, and
+    the host mirror of the layout is the device's."""
+    tables, pos, box, q = _system(384, seed=4, has14=True)
+    jq = jnp.asarray(q)
+    stale = pos.copy()
+    stale[:400, 2] += 4.0
+    for cache_pos, band_w, want in ((pos, 3, False), (stale, 3, True),
+                                    (pos, 1, True)):
+        jc = jax.jit(lambda p: jpp.make_pair_cache(p, box, jq, tables, 128))(
+            jnp.asarray(cache_pos))
+        tc = tpt.make_pair_cache(_t(cache_pos), _t(box), q, tables, 128,
+                                 inner_order=True)
+        pj = np.asarray(jc.perm).reshape(-1, 128)
+        pt_ = tc.perm.numpy().reshape(-1, 128)
+        assert not np.array_equal(pj, pt_)
+        np.testing.assert_array_equal(np.sort(pj, axis=1),
+                                      np.sort(pt_, axis=1))
+        n = pos.shape[0]
+        last = pt_[(n - 1) // 128]
+        assert (last[:n % 128 or 128] < n).all()
+        np.testing.assert_array_equal(tc.invperm.numpy()[tc.perm.numpy()],
+                                      np.arange(pt_.size))
+        np.testing.assert_array_equal(
+            tpt.band_layout_np(cache_pos, box, 128), tc.perm.numpy())
+        np.testing.assert_array_equal(
+            tpt.band_layout_np(cache_pos, box, 128, inner_order=False),
+            np.asarray(jc.perm))
+        flag_j = bool(jpp.band_coverage_bad(jnp.asarray(pos), box, jc, 128,
+                                            band_w, RC))
+        flag_t = bool(tpt.band_coverage_bad(_t(pos), _t(box), tc, 128,
+                                            band_w, RC))
+        assert flag_t == flag_j == want
+    # a chunk of 32 slots is a patch of its slab, not a sheet across it
+    tc, pos2d = _sorted_layout(tables, pos, box, q, 128)
+    tz, pos2z = _sorted_layout(tables, pos, box, q, 128, inner_order=False)
+    real = tc.ljt.numpy() >= 0
+
+    def mean_xy_extent(p, r):
+        half = tpt._chunk_boxes_np(p.astype(np.float64), r, box)[1]
+        return half[:-1, :2].mean()
+
+    assert mean_xy_extent(pos2d, real) < 0.8 * mean_xy_extent(
+        pos2z, tz.ljt.numpy() >= 0)
+    args = lambda c, p: (_t(p), c.q, c.ab, c.bits, c.bits14, c.oid, c.ljt,
+                         c.grp, c.grows, _t(box))
+    kw = dict(ts=128, t_dim=tables["arows"].shape[1], beta=BETA, r_cutoff=RC,
+              has14=True, band_w=3)
+    rows_i, col_i = tpt.run_tri(*args(tc, pos2d), **kw)
+    rows_z, col_z = tpt.run_tri(*args(tz, pos2z), **kw)
+    f_i = (rows_i[:, :3] + col_i[:3].t())[tc.invperm]
+    f_z = (rows_z[:, :3] + col_z[:3].t())[tz.invperm]
+    assert_forces_close(f_i.numpy(), f_z.numpy())
+    for c in range(3, 8):
+        np.testing.assert_allclose(float(rows_i[:, c].double().sum()),
+                                   float(rows_z[:, c].double().sum()),
+                                   rtol=5e-5, atol=1e-3)
+
+
+def test_chunk_pair_map_marks_every_excluded_and_14_pair():
+    """The bitmap against a brute-force walk of the masks, on the sorted
+    and the unsorted layout: a chunk pair is marked exactly where it holds
+    an excluded or folded 1-4 pair, or is a chunk with itself."""
+    tables, pos, box, q = _system(96, seed=7, has14=True)
+    tc, _ = _sorted_layout(tables, pos, box, q, 64)
+    st = tpt.band_statics(q, tables, tc.perm.shape[0], "cpu")
+    n_pad = tc.perm.shape[0]
+    for cmap, ids, marks in (
+            (tc.cmap, tc.perm.numpy(), (tc.bits | tc.bits14).numpy()),
+            (st["cmap"], np.arange(n_pad),
+             (st["bits"] | st["bits14"]).numpy())):
+        got = tpt.chunk_pair_marked(cmap).numpy()
+        inv = np.empty(n_pad, np.int64)
+        inv[ids] = np.arange(n_pad)
+        want = np.eye(n_pad // 32, dtype=bool)
+        n_marks = 0
+        for s in range(n_pad):
+            for d in range(1, 32):
+                if (int(marks[s]) >> d) & 1 and ids[s] + d < n_pad:
+                    p = inv[ids[s] + d]
+                    want[s // 32, p // 32] = want[p // 32, s // 32] = True
+                    n_marks += 1
+        assert n_marks >= 96 * 6
+        np.testing.assert_array_equal(got, want)
+        assert cmap.dtype == torch.int32 and cmap.shape == (
+            n_pad // 32, -(-(n_pad // 32) // 32))
+
+
+def _must_visit(pos2d, real, box, ids, marks, ts, mode, band_w, full):
+    """(n_pad, n_pad) bool: the ordered (row, column) pairs of one
+    enumeration that a sweep must evaluate: both real, distinct, and within
+    the cutoff under the minimum image or excluded / 1-4 partners."""
+    n_pad = pos2d.shape[0]
+    n_tiles = n_pad // ts
+    enum = np.zeros((n_tiles, n_tiles), bool)
+    ti, tj = tpt.tile_pairs(mode, n_tiles, band_w, full)
+    enum[ti, tj] = True
+    d = pos2d[:, None, :].astype(np.float64) - pos2d[None, :, :]
+    d -= box * np.round(d / box)
+    need = (d * d).sum(-1) < RC * RC
+    inv = np.empty(n_pad, np.int64)
+    inv[ids] = np.arange(n_pad)
+    partners = np.zeros((n_pad, n_pad), bool)
+    for s in range(n_pad):
+        for k in range(1, 32):
+            if (int(marks[s]) >> k) & 1 and ids[s] + k < n_pad:
+                p = inv[ids[s] + k]
+                partners[s, p] = partners[p, s] = True
+    need |= partners
+    need &= real[:, None] & real[None, :] & ~np.eye(n_pad, dtype=bool)
+    tile = np.arange(n_pad) // ts
+    return need & enum[tile[:, None], tile[None, :]], partners
+
+
+@pytest.mark.parametrize("case", ["has14", "groups", "beyond_cutoff",
+                                  "full_sweep", "band+far"])
+def test_skip_model_drops_no_pair(case):
+    """The numpy model of kernel B2's two skips (chunk boxes, then columns
+    against the row chunk's box; marked chunk pairs left alone) evaluates
+    every pair of the enumeration that lies within the cutoff and every
+    excluded or folded 1-4 pair at any distance, and skips most of the
+    rest.  ``beyond_cutoff`` moves each molecule's last atom 2.5 nm along
+    x, so its excluded and 1-4 partners lie beyond the cutoff and the patch
+    size: only the bitmap keeps them."""
+    has14 = case != "groups"
+    tables, pos, box, q = _system(384, has14=has14, groups=case == "groups")
+    pos = pos.copy()
+    if case == "beyond_cutoff":
+        pos[3::4, 0] += 2.5
+    ts = 128
+    mode, band_w, full = "bandall", 3, False
+    if case == "full_sweep":
+        band_w, full = 6, True
+    n_pad = tpt.padded_size(pos.shape[0], ts)
+    if case == "band+far":
+        st = tpt.band_statics(q, tables, n_pad, "cpu")
+        pos2d = np.concatenate([pos, np.full((n_pad - pos.shape[0], 3), 1e6,
+                                             np.float32)])
+        ids, cmap = np.arange(n_pad), st["cmap"]
+        marks = (st["bits"] | st["bits14"]).numpy()
+        real = st["ljt"].numpy() >= 0
+        enums = [("band", 0, False, True), ("far", 0, False, False)]
+    else:
+        tc, pos2d = _sorted_layout(tables, pos, box, q, ts)
+        ids, cmap = tc.perm.numpy(), tc.cmap
+        marks = (tc.bits | tc.bits14).numpy()
+        real = tc.ljt.numpy() >= 0
+        enums = [(mode, band_w, full, True)]
+    marked = tpt.chunk_pair_marked(cmap).numpy()
+    for mode, band_w, full, use_map in enums:
+        visited = np.zeros((n_pad, n_pad), bool)
+        items, evals = tpt.skip_model_np(
+            pos2d, real, box, marked if use_map else None, ts, RC, mode=mode,
+            band_w=band_w, full_sweep=full, visited=visited)
+        need, partners = _must_visit(pos2d, real, box, ids, marks, ts, mode,
+                                     band_w, full)
+        if not use_map:
+            assert not (need & partners).any()   # far: no excluded pair
+        else:
+            assert int((need & partners).sum()) >= 384 * 6
+        assert need.sum() > 1000
+        assert not (need & ~visited).any()
+        if case == "beyond_cutoff":
+            far = partners & (np.abs(pos2d[:, None, 0] - pos2d[None, :, 0])
+                              > 2.0) & need
+            assert far.sum() >= 384 * 3 and not (far & ~visited).any()
+        slots = len(tpt.tile_pairs(mode, n_pad // ts, band_w, full)[0]) \
+            * ts * ts
+        assert int(visited.sum()) <= evals <= slots
+        # the unsorted layout's chunks span the box: little to skip there
+        if case != "band+far":
+            assert evals < 0.8 * slots, (evals, slots)
+        assert items <= slots // 1024

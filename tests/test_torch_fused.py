@@ -118,7 +118,7 @@ def test_factorised_forces_match_reference_and_jax(n, kmax, ts):
         assert (seg[:, 1] == c % nys - kmax[1]).all()
         assert seg.shape[0] in (kmax[2], kmax[2] + 1)
         assert seg[-1, 2] == kmax[2] and (np.diff(seg[:, 2]) == 1).all()
-    s_re, s_im = tef.structure_factor(posp, qp, kvec)
+    s_re, s_im = tef.structure_factor(posp, qp, kvec, kmax, _t(box))
     ab = torch.stack([2.0 * c0 * w * s_im, 2.0 * c0 * w * s_re]).contiguous()
     assert not ab[:, k_real:].any()
     f_ref = tef.recip_forces_reference(posp, qp, kvec, ab)
@@ -137,3 +137,97 @@ def test_factorised_forces_match_reference_and_jax(n, kmax, ts):
     np.testing.assert_array_equal(
         tef.recip_forces(posp, qp, kvec, ab, kmax, _t(box)).numpy(),
         f_ref.numpy())
+
+
+@pytest.mark.parametrize("n,kmax,ts", [(97, (3, 4, 5), 32),
+                                       (40, (20, 20, 20), 8)])
+def test_factorised_structure_factor_matches_reference_and_jax(n, kmax, ts):
+    """The algorithm of kernel B4 (per-atom axis tables, the dense (nx, ny,
+    nz) block gathered into list order) in plain torch against the
+    theta = k . r plain version and against the JAX ``_structure_factor``
+    in interpret mode: every mode within float32 rounding of the sum's
+    size, and the energy at rtol 2e-5."""
+    pos, box, q = _system(n, 15)
+    posp, qp, kvec, w, c0, n_pad, kp, kt = tef._prep(_t(pos), _t(box), _t(q),
+                                                     BETA, kmax, ts)
+    s_ref = tef.structure_factor_reference(posp, qp, kvec)
+    s_fac = tef.structure_factor_factorised(posp, qp, kmax, _t(box))
+    s8 = np.asarray(jep._structure_factor(
+        jnp.asarray(posp.numpy()), jnp.asarray(qp.numpy())[:, None],
+        jnp.asarray(kvec.numpy()), ts, kp, kt, True))
+    scale = float(qp.abs().sum())
+
+    def energy(s_re, s_im):
+        return float(c0 * torch.sum(w.double() * (_t(s_re).double() ** 2
+                                                  + _t(s_im).double() ** 2)))
+
+    for c in range(2):
+        np.testing.assert_allclose(s_fac[c].numpy(), s_ref[c].numpy(),
+                                   atol=2e-5 * scale, rtol=0)
+        np.testing.assert_allclose(s_fac[c].numpy(), s8[c],
+                                   atol=2e-5 * scale, rtol=0)
+    assert abs(energy(*s_ref)) > 1e-3
+    np.testing.assert_allclose(energy(*s_fac), energy(*s_ref), rtol=2e-5)
+    np.testing.assert_allclose(energy(*s_fac), energy(s8[0], s8[1]),
+                               rtol=2e-5)
+    # the public wrapper takes kmax and box and, on the CPU, the plain version
+    got = tef.structure_factor(posp, qp, kvec, kmax, _t(box))
+    np.testing.assert_array_equal(got[0].numpy(), s_ref[0].numpy())
+
+
+def test_factorised_structure_factor_nz0_half_plane():
+    """The nz = 0 plane: the list keeps only (ny > 0) | (ny == 0 & nx > 0).
+    The dense block computes the other half too (it is the conjugate) and
+    the gather drops it: no list entry takes a value from it, and every
+    kept nz = 0 mode is the conjugate of its mirror in the dense block."""
+    kmax = (3, 2, 4)
+    pos, box, q = _system(33, 16)
+    posp, qp, kvec, *_ = tef._prep(_t(pos), _t(box), _t(q), BETA, kmax, 8)
+    k, live = tef._list_of_dense(kmax, "cpu")
+    live = live.reshape(7, 5, 5)
+    nx = torch.arange(-3, 4)[:, None]
+    ny = torch.arange(-2, 3)[None, :]
+    want0 = (ny > 0) | ((ny == 0) & (nx > 0))
+    assert torch.equal(live[:, :, 0], want0) and bool(live[:, :, 1:].all())
+    assert int(live.sum()) == tef.k_tiling(kmax)[0]
+    assert torch.equal(torch.sort(k.reshape(7, 5, 5)[live]).values,
+                       torch.arange(int(live.sum())))
+    s_re, s_im = tef.structure_factor_factorised(posp, qp, kmax, _t(box))
+    r_re, r_im = tef.structure_factor_reference(posp, qp, kvec)
+    modes = tef._half_space_modes(kmax)
+    plane = np.nonzero(modes[:, 2] == 0)[0]
+    assert plane.size == int(want0.sum())
+    scale = float(qp.abs().sum())
+    np.testing.assert_allclose(s_re[plane].numpy(), r_re[plane].numpy(),
+                               atol=2e-5 * scale)
+    np.testing.assert_allclose(s_im[plane].numpy(), r_im[plane].numpy(),
+                               atol=2e-5 * scale)
+
+
+def test_factorised_structure_factor_pad_modes():
+    """The pad modes k >= K (kvec 0, weight 0): the plain version gives
+    sum_i q_i there, and so do the factorised model and kernel B4 (the dense
+    block's (0, 0, 0) element); the kernel's map from its dense partial
+    block to the list names every mode once, and (0, 0, 0) as the pads'."""
+    kmax = (20, 20, 20)
+    pos, box, q = _system(24, 17)
+    q = q + np.float32(0.25)
+    posp, qp, kvec, w, *_ = tef._prep(_t(pos), _t(box), _t(q), BETA, kmax, 8)
+    k_real, _, kp = tef.k_tiling(kmax)
+    assert kp > k_real and not w[k_real:].any()
+    s_re, s_im = tef.structure_factor_factorised(posp, qp, kmax, _t(box))
+    r_re, r_im = tef.structure_factor_reference(posp, qp, kvec)
+    total = float(qp.sum())
+    assert abs(total) > 1.0
+    np.testing.assert_allclose(s_re[k_real:].numpy(), total, rtol=1e-5)
+    np.testing.assert_allclose(r_re[k_real:].numpy(), total, rtol=1e-5)
+    assert not s_im[k_real:].any() and not r_im[k_real:].any()
+    t = tef.structure_tiling(kmax, posp.shape[0], 132)
+    assert t["threads"] <= 320 and t["threads"] % 32 == 0
+    assert t["stot"] >= 41 * t["nyg"] and t["ranges"] * t["atoms_per"] >= t["n_tab"] >= 24
+    inv = tef._dense_to_list_t(kmax, t["stot"], "cpu").numpy()
+    assert inv.shape == (t["dense"],)
+    assert np.array_equal(np.sort(inv[inv >= 0]), np.arange(k_real))
+    assert int((inv == -2).sum()) == 1
+    with pytest.raises(ValueError, match="nz groups"):
+        tef.structure_tiling((2, 2, 200), 64, 132)

@@ -247,11 +247,10 @@ def test_langevin_thermostat_fdt():
     integ = tpkg.VVIntegrator(temperature=150.0, step_size=0.002)
     for i in range(n_side ** 3):
         integ.addParticleLangevin(i)
-    # plain cutoff Coulomb (ewald_beta 0): the plist sweep's Ewald
-    # polynomial has no fit there (ROADMAP C), so the dense sweep runs, as
-    # the JAX Context takes it on the CPU
-    ctx = tpkg.Context(system, integ, positions=pos, box=box, device="cpu",
-                       pair_kernel="dense")
+    # plain cutoff Coulomb (ewald_beta 0): the plist sweep, whose Ewald
+    # polynomial is identically zero there
+    ctx = tpkg.Context(system, integ, positions=pos, box=box, device="cpu")
+    assert ctx.evaluator.pair_mode == "plist"
     temps = []
     for _ in range(12):
         ctx.step(100)

@@ -2,7 +2,9 @@
 B1 (csrc/plist_pair.cu) for the tile sizes from one warp (32) to 384, both
 specializations, the nowrap and wrapped frames and the LJ rows in shared
 memory or read through __ldg; B2 (csrc/tri_pair.cu) in every tile-pair
-enumeration x specialization x 1-4 folding x interaction groups; B4/B5
+enumeration x specialization x 1-4 folding x interaction groups on the
+layout the evaluator builds, at tile sizes 32 to 768, and in its row-sharded
+form; B4/B5
 (csrc/ewald_fused.cu) forward, backward and through autograd; B3
 (csrc/rect_pair.cu) at two tile shapes with and without interaction groups;
 B6-B8 (csrc/gather.cu) bitwise against their plain versions and against
@@ -196,6 +198,9 @@ TRI_CASES = {
     "full_even": ([("bandall", 6, True)], 128, 24, True),
     "full_even_unsorted": ([("bandall", 6, True)], 128, 24, False),
     "bandall_640": ([("bandall", 1, False)], 640, 30, True),
+    "bandall_256": ([("bandall", 2, False)], 256, 24, True),
+    "bandall_768": ([("bandall", 1, False)], 768, 36, True),
+    "full_32": ([("bandall", 12, True)], 32, 12, True),
 }
 
 
@@ -210,7 +215,9 @@ def test_tri_kernel_matches_plain(cuda, case, want_energy, has14, groups):
     n_pad = pair_tri.padded_size(n, ts)
     st = pair_tri.band_statics(q, tables, n_pad, cuda)
     if z_sorted:
-        f = pair_tri.make_pair_cache(posd, boxd, q, tables, ts, statics=st)
+        # the layout the evaluator builds: strips inside each z-sorted tile
+        f = pair_tri.make_pair_cache(posd, boxd, q, tables, ts, statics=st,
+                                     inner_order=True)
         oid = f.oid
     else:
         f = pair_tri.BandCache(perm=torch.arange(n_pad, device=cuda),
@@ -227,10 +234,18 @@ def test_tri_kernel_matches_plain(cuda, case, want_energy, has14, groups):
         if full:
             assert kw["band_w"] == (n_pad // ts) // 2
         before = pair_tri.tri_pair.launches
-        rows, colacc = pair_tri.tri_pair(*args, **kw)
+        evals = torch.zeros(1, dtype=torch.int64, device=cuda)
+        rows, colacc = pair_tri.tri_pair(*args, cmap=f.cmap, evals=evals,
+                                         **kw)
         assert pair_tri.tri_pair.launches == before + 1
         rows_p, col_p = pair_tri.tri_pair_reference(*args, **kw)
         torch.cuda.synchronize()
+        # the skips cut the enumeration's ts x ts slots, never to nothing
+        slots = len(pair_tri.tile_pairs(mode, n_pad // ts, band_w, full)[0]) \
+            * ts * ts
+        assert 0 < int(evals) <= slots
+        if z_sorted and mode == "bandall" and ts >= 128:
+            assert int(evals) < 0.9 * slots
         np.testing.assert_allclose(rows[:, :3].cpu().numpy(),
                                    rows_p[:, :3].cpu().numpy(),
                                    rtol=1e-3, atol=5e-2, err_msg=mode)
@@ -243,8 +258,54 @@ def test_tri_kernel_matches_plain(cuda, case, want_energy, has14, groups):
                                        float(rows_p[:, c].double().sum()),
                                        rtol=e_rtol, atol=e_atol + 1e-6,
                                        err_msg=f"{mode} column {c}")
+        # bitwise run to run; without ``cmap`` the wrapper builds the same
         rows2, col2 = pair_tri.tri_pair(*args, **kw)
         assert torch.equal(rows, rows2) and torch.equal(colacc, col2)
+
+
+@pytest.mark.parametrize("ts,nz,band_w,full", [(128, 24, 3, False),
+                                               (128, 24, 6, True),
+                                               (128, 22, 5, True),
+                                               (256, 24, 2, False)])
+@pytest.mark.parametrize("want_energy", [False, True])
+def test_tri_kernel_row_sharded(cuda, ts, nz, band_w, full, want_energy):
+    """The row-sharded form on the card: each half of the row tiles against
+    the plain version of the same call, the halves' rows equal to the
+    unsharded call's bitwise (a row chunk's items and their order are the
+    same) and their column accumulators adding up to it."""
+    tables, posd, boxd, q = _tri_setup(cuda, nz, True, True)
+    f = pair_tri.make_pair_cache(posd, boxd, q, tables, ts, inner_order=True)
+    n_pad = f.perm.shape[0]
+    pos2d = torch.cat([posd, torch.full((n_pad - posd.shape[0], 3), 1e6,
+                                        device=cuda)])[f.perm].contiguous()
+    args = (pos2d, f.q, f.ab, f.bits, f.bits14, f.oid, f.ljt, f.grp, f.grows,
+            boxd)
+    n_tiles = n_pad // ts
+    kw = dict(ts=ts, t_dim=tables["arows"].shape[1], beta=BETA, r_cutoff=RC,
+              mode="bandall", band_w=band_w, full_sweep=full,
+              want_energy=want_energy, has14=True, cmap=f.cmap)
+    rows, colacc = pair_tri.tri_pair(*args, **kw)
+    h = n_tiles // 2
+    parts = []
+    for off, cnt in ((0, h), (h, n_tiles - h)):
+        skw = dict(kw, row_off=off, n_row_tiles=cnt, n_tiles_g=n_tiles)
+        r, c = pair_tri.tri_pair(*args, **skw)
+        del skw["cmap"]
+        r_p, c_p = pair_tri.tri_pair_reference(*args, **skw)
+        assert r.shape == r_p.shape == (cnt * ts, 8)
+        np.testing.assert_allclose(r[:, :3].cpu().numpy(),
+                                   r_p[:, :3].cpu().numpy(), rtol=1e-3,
+                                   atol=5e-2)
+        np.testing.assert_allclose(c.cpu().numpy(), c_p.cpu().numpy(),
+                                   rtol=1e-3, atol=5e-2)
+        for k in range(3, 8):
+            np.testing.assert_allclose(float(r[:, k].double().sum()),
+                                       float(r_p[:, k].double().sum()),
+                                       rtol=5e-5, atol=1e-3 + 1e-6)
+        parts.append((r, c))
+    assert torch.equal(torch.cat([parts[0][0], parts[1][0]]), rows)
+    np.testing.assert_allclose((parts[0][1] + parts[1][1]).cpu().numpy(),
+                               colacc.cpu().numpy(), rtol=1e-3, atol=5e-2)
 
 
 def test_tri_kernel_rejects_bad_input(cuda):
@@ -265,6 +326,16 @@ def test_tri_kernel_rejects_bad_input(cuda):
         pair_tri.tri_pair(*args, **dict(kw, ts=100))
     with pytest.raises(ValueError, match="band_w"):
         pair_tri.tri_pair(*args, **dict(kw, band_w=12))
+    with pytest.raises(ValueError, match="cmap"):
+        pair_tri.tri_pair(*args, cmap=f.cmap[:, :0].contiguous(), **kw)
+    with pytest.raises(ValueError, match="cmap"):
+        pair_tri.tri_pair(*args, cmap=f.cmap.long(), **kw)
+    with pytest.raises(ValueError, match="row"):
+        pair_tri.tri_pair(*args, row_off=8, n_row_tiles=8, **kw)
+    with pytest.raises(ValueError, match="bandall"):
+        pair_tri.tri_pair(*args, **dict(kw, mode="band", row_off=1))
+    with pytest.raises(ValueError, match="evals"):
+        pair_tri.tri_pair(*args, evals=torch.zeros(1, device=cuda), **kw)
 
 
 # ---------------------------------------------------------- kernels B4/B5
@@ -283,15 +354,24 @@ def _recip_system(dev, n, seed):
                                        (3001, (9, 8, 10), 256),
                                        (700, (20, 20, 20), 256),
                                        (130, (0, 2, 1), 32),
-                                       (130, (5, 0, 0), 32)])
+                                       (130, (5, 0, 0), 32),
+                                       (530, (2, 3, 30), 32),
+                                       (61, (12, 11, 13), 8)])
 def test_fused_kernels_match_plain(cuda, n, kmax, ts):
     pos, box, q = _recip_system(cuda, n, 21)
     posp, qp, kvec, w, c0, _, kp, _ = ewald_fused._prep(pos, box, q, 2.8,
                                                         kmax, ts)
     b4 = ewald_fused.structure_factor.launches
-    s_re, s_im = ewald_fused.structure_factor(posp, qp, kvec)
+    s_re, s_im = ewald_fused.structure_factor(posp, qp, kvec, kmax, box)
     assert ewald_fused.structure_factor.launches == b4 + 1
     r_re, r_im = ewald_fused.structure_factor_reference(posp, qp, kvec)
+    # every mode, the pad modes k >= K included (sum_i q_i in both), within
+    # float32 rounding of the sum's size
+    scale_s = float(qp.abs().sum())
+    np.testing.assert_allclose(s_re.cpu().numpy(), r_re.cpu().numpy(),
+                               atol=2e-5 * scale_s, rtol=0)
+    np.testing.assert_allclose(s_im.cpu().numpy(), r_im.cpu().numpy(),
+                               atol=2e-5 * scale_s, rtol=0)
     e_k = float(c0 * torch.sum(w * (s_re * s_re + s_im * s_im)))
     e_p = float(c0 * torch.sum(w * (r_re * r_re + r_im * r_im)))
     np.testing.assert_allclose(e_k, e_p, rtol=2e-5)
@@ -303,7 +383,7 @@ def test_fused_kernels_match_plain(cuda, n, kmax, ts):
     scale = float(f_p.abs().max())
     np.testing.assert_allclose(f.cpu().numpy(), f_p.cpu().numpy(),
                                atol=3e-5 * scale, rtol=2e-4)
-    again = ewald_fused.structure_factor(posp, qp, kvec)
+    again = ewald_fused.structure_factor(posp, qp, kvec, kmax, box)
     f2 = ewald_fused.recip_forces(posp, qp, kvec, ab, kmax, box)
     assert torch.equal(again[0], s_re) and torch.equal(again[1], s_im)
     assert torch.equal(f2, f)
@@ -330,9 +410,13 @@ def test_fused_kernels_reject_bad_input(cuda):
     posp, qp, kvec, w, c0, _, kp, _ = ewald_fused._prep(pos, box, q, 2.8,
                                                         (3, 4, 6), 32)
     with pytest.raises(ValueError, match="posp"):
-        ewald_fused.structure_factor(posp.double(), qp, kvec)
+        ewald_fused.structure_factor(posp.double(), qp, kvec, (3, 4, 6), box)
     with pytest.raises(ValueError, match="qp"):
-        ewald_fused.structure_factor(posp, qp.cpu(), kvec)
+        ewald_fused.structure_factor(posp, qp.cpu(), kvec, (3, 4, 6), box)
+    with pytest.raises(ValueError, match="kmax"):
+        ewald_fused.structure_factor(posp, qp, kvec, (30, 4, 6), box)
+    with pytest.raises(ValueError, match="box"):
+        ewald_fused.structure_factor(posp, qp, kvec, (3, 4, 6), box.cpu())
     with pytest.raises(ValueError, match="ab"):
         ewald_fused.recip_forces(posp, qp, kvec, torch.zeros(
             (2, kp - 1), device=cuda), (3, 4, 6), box)
@@ -341,7 +425,7 @@ def test_fused_kernels_reject_bad_input(cuda):
             (2, kp), device=cuda), (30, 4, 6), box)
     with pytest.raises(ValueError, match="device"):
         ewald_fused.structure_factor(posp.to("meta"), qp.to("meta"),
-                                     kvec.to("meta"))
+                                     kvec.to("meta"), (3, 4, 6), box)
 
 
 # ------------------------------------------------------------- kernel B3
