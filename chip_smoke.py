@@ -45,12 +45,28 @@ Phases:
      more after set_velocities; path 4 then steps on to 1000 steps, its
      Langevin group's kinetic temperature over steps 500-1000 within 10% of
      333 K; get_viscosity() finite;
-  6. for each path every energy term and the kinetic energy finite, a
+  6. path 6, constant voltage at edl_Im21's atom counts (a synthetic slab,
+     ``edl_system``: 2,496 electrode sites, 18,900 liquid atoms, 18,900
+     images, run-edl's wiring at 1 V): step(20), step(100) timed on the
+     mirror route, B1 launched >= 100 times; image sync within 1e-5 nm,
+     finite terms with |coul_direct| below 1e3 kJ/mol an atom, electrode
+     and Drude-wall gates; the mirror reciprocal against the explicit one
+     over all atoms; B1 in its group-rows form on the culled list against
+     its plain version; a 20-step leg on recip="exact_fused" (B4/B5 over all
+     atoms, images included) whose start agrees with the mirror route;
+  7. path 7, NPT at 19,500 atoms (BarostatConfig("iso", 1 bar, 333 K,
+     frequency 25)): step(20), step(200) timed (8 attempts), attempts,
+     acceptances and the volume; then a gate leg in which every accepted
+     move leaves finite terms, no coverage trip on its step and the box
+     scaled by the move's axis_scale;
+  8. for each path every energy term and the kinetic energy finite, a
      torch.profiler summary of 20 more steps (device busy time, kernels per
      step, top kernels), and a 64-molecule system stepped 10 times on the
      card tracking the same run on the CPU (plain versions; path 4 without
-     its Langevin subset, whose noise streams differ between the two);
-  7. one JSON line {"kernels": [...]}, the card line, and as the last line
+     its Langevin subset and path 6 without its Langevin electrode, whose
+     noise streams differ between the two; path 7 with the same barostat
+     draws handed to both, the same accept / reject sequence);
+  9. one JSON line {"kernels": [...]}, the card line, and as the last line
      {"ok": true, "device": {...}}.
 
 Exits nonzero on any failure, without a CUDA device, or without the
@@ -104,6 +120,14 @@ RECT_OPS = 73
 # start melts and heats everything to ~500 K within 100 steps, and the OU
 # map relaxes in 1/gamma = 0.2 ps = 200 steps.
 LD_T_BAND = 0.1
+# path 6 (tests/test_ewald_mirror.py:48-54): the mirror reciprocal against
+# the explicit evaluation over all atoms, energy rtol and real-atom forces
+# rtol / atol relative to max|F|; image sync in nm; |coul_direct| per atom
+MIRROR_E_RTOL, MIRROR_F_RTOL, MIRROR_F_ATOL_REL = 2e-5, 1e-4, 2e-4
+IMAGE_SYNC_ATOL = 1e-5
+COUL_PER_ATOM = 1e3
+# kcal/mol/A^2 in kJ/mol/nm^2 (run-edl's restraint unit)
+KCAL_A2 = 4.184 / 0.01
 
 
 def card_line():
@@ -142,11 +166,12 @@ def bound(ops, n_bytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def cutoff_pairs(pos, box, r_cutoff, block=1024):
+def cutoff_pairs(pos, box, r_cutoff, block=1024, inert=None):
     """Atom pairs i < j within the cutoff under the minimum image: the
     pairs a direct-space sweep must evaluate on these positions, whatever
     tile pairs its enumeration visits.  The pair kernels' bounds count
-    these."""
+    these.  ``inert`` (a bool tensor) leaves out pairs of two inert atoms,
+    which the step's list culls."""
     import torch
     n = pos.shape[0]
     box = box.reshape(1, 1, 3)
@@ -157,7 +182,10 @@ def cutoff_pairs(pos, box, r_cutoff, block=1024):
         d = d - box * torch.round(d / box)
         r2 = (d * d).sum(-1)
         i = torch.arange(s, min(s + block, n), device=pos.device)[:, None]
-        total += int(((r2 < r_cutoff * r_cutoff) & (j > i)).sum())
+        hit = (r2 < r_cutoff * r_cutoff) & (j > i)
+        if inert is not None:
+            hit &= ~(inert[s:s + block, None] & inert[None, :])
+        total += int(hit.sum())
     return total
 
 
@@ -598,9 +626,11 @@ def b2_phase(ctx1, system, pos):
     return main
 
 
-def recip_phase(ctx):
-    """B4 and B5 against their plain versions on the 19,500-atom system,
-    beside the main path's matmul route on the same inputs."""
+def recip_phase(ctx, label=""):
+    """B4 and B5 against their plain versions on the inputs that the fused
+    route of ``ctx`` hands them (its atoms, its k vectors and B4's result
+    as B5's coefficients), beside the matmul route on the same positions
+    (with the context's image mirror, if any).  ``label`` tags the lines."""
     import torch
     from openmm_velocityverlet_tpu_torch.ops import ewald, ewald_fused as ef
     s = ctx.system
@@ -610,8 +640,10 @@ def recip_phase(ctx):
     posp, qp, kvec, w, c0, n_pad, kp, kt = ef._prep(pos, box, q,
                                                     s.ewald_beta, s.kmax, 256)
     k_real = ef.k_tiling(s.kmax)[0]
-    print(f"[kernel] B4/B5: n_pad={n_pad}, K={k_real} padded to {kp} "
-          f"(k tile {kt}); {pos.shape[0] * k_real / 1e6:.0f} M phases a pass")
+    b4n, b5n = "B4" + label, "B5" + label
+    print(f"[kernel] B4/B5{label}: n_pad={n_pad}, kmax {s.kmax}, "
+          f"K={k_real} padded to {kp} (k tile {kt}); "
+          f"{pos.shape[0] * k_real / 1e6:.0f} M phases a pass")
 
     def energy(s_re, s_im):
         return float((c0 * torch.sum(w.double() * (s_re.double() ** 2
@@ -633,8 +665,8 @@ def recip_phase(ctx):
     torch.cuda.synchronize()
     e_k, e_p = energy(*s_k), energy(*s_p)
     # which of the two is closer to the function: a float64 evaluation of
-    # the plain version on the first 512 atoms
-    sub = slice(0, 512)
+    # the plain version on the first 512 charged atoms
+    sub = torch.nonzero(qp != 0)[:512, 0]
     f64 = ef.recip_forces_reference(posp[sub].double(), qp[sub].double(),
                                     kvec.double(), ab.double())
     s64 = ef.structure_factor_reference(posp[sub].double(), qp[sub].double(),
@@ -644,10 +676,10 @@ def recip_phase(ctx):
              ef.structure_factor_reference(posp[sub], qp[sub], kvec)]
     s_errs = [max(float((t[c] - s64[c]).abs().max()) for c in range(2))
               for t in s_sub]
-    print(f"[kernel] B4 against float64 on 512 atoms: max abs S error "
+    print(f"[kernel] {b4n} against float64 on 512 atoms: max abs S error "
           f"kernel {s_errs[0]:.3e}, plain version {s_errs[1]:.3e} (max|S| "
           f"{float(torch.maximum(s64[0].abs().max(), s64[1].abs().max())):.3f})")
-    print(f"[kernel] B5 against float64 on 512 atoms: max abs force error "
+    print(f"[kernel] {b5n} against float64 on 512 atoms: max abs force error "
           f"kernel {float((f_k[sub] - f64).abs().max()):.3e}, plain version "
           f"{float((f_p[sub] - f64).abs().max()):.3e} (max|F| "
           f"{float(f64.abs().max()):.3f})")
@@ -661,8 +693,8 @@ def recip_phase(ctx):
 
     ok_e = abs(e_k - e_p) <= RECIP_E_RTOL * abs(e_p)
     ok_f, f_err = f_ok(f_k, f_p)
-    print(f"[kernel] B4: energy kernel {e_k:.6f} plain {e_p:.6f} (rtol "
-          f"{RECIP_E_RTOL}); B5: max abs force error {f_err:.3e} (atol "
+    print(f"[kernel] {b4n}: energy kernel {e_k:.6f} plain {e_p:.6f} (rtol "
+          f"{RECIP_E_RTOL}); {b5n}: max abs force error {f_err:.3e} (atol "
           f"{RECIP_F_ATOL_REL} max|F| {float(f_p.abs().max()):.3f}, rtol "
           f"{RECIP_F_RTOL})")
     s_err = float(torch.maximum((s_k[0] - s_p[0]).abs().max(),
@@ -677,19 +709,20 @@ def recip_phase(ctx):
         ok64 = all(abs(e - e64) <= RECIP_E_RTOL * abs(e64)
                    for e in (e_k, e_p)) and f_ok(f_k, f64)[0] \
             and f_ok(f_p, f64)[0]
-        print(f"[kernel] B4/B5 beyond tolerance of the float32 plain "
+        print(f"[kernel] B4/B5{label} beyond tolerance of the float32 plain "
               f"version; against a float64 plain run: energy kernel "
               f"{e_k - e64:+.3e}, plain {e_p - e64:+.3e}; forces kernel "
               f"{f_ok(f_k, f64)[1]:.3e}, plain {f_ok(f_p, f64)[1]:.3e}; "
               f"{'both within' if ok64 else 'NOT within'} tolerance")
         if not ok64:
-            raise AssertionError("B4/B5 disagree with their plain versions")
+            raise AssertionError(f"B4/B5{label} disagree with their plain "
+                                 f"versions")
     again = [(b4(), b5()) for _ in range(2)]
     torch.cuda.synchronize()
     if not all(torch.equal(a[0], s_k[0]) and torch.equal(a[1], s_k[1])
                and torch.equal(f, f_k) for a, f in again):
-        raise AssertionError("B4/B5 documented as bitwise deterministic but "
-                             "two runs differ")
+        raise AssertionError(f"B4/B5{label} documented as bitwise "
+                             f"deterministic but two runs differ")
     t = dict(
         b4=cuda_time_ms(b4), b4_device=device_ms(b4, calls=20),
         b4_plain=cuda_time_ms(
@@ -708,10 +741,10 @@ def recip_phase(ctx):
     t["fused_route"] = cuda_time_ms(route(lambda p: ef.reciprocal_energy_fused(
         p, box, q, s.ewald_beta, s.kmax, 256)), reps=10)
     t["matmul_route"] = cuda_time_ms(route(lambda p: ewald.reciprocal_energy(
-        p, box, q, s.ewald_beta, s.kmax, chunk=ctx.evaluator.ewald_chunk)),
-        reps=10)
-    print(f"[kernel] B4/B5: bitwise equal over 3 runs; B4 {t['b4']:.4f} ms "
-          f"({t['b4_device']:.4f} ms device time; plain "
+        p, box, q, s.ewald_beta, s.kmax, chunk=ctx.evaluator.ewald_chunk,
+        mirror=ctx.image_mirror)), reps=10)
+    print(f"[kernel] B4/B5{label}: bitwise equal over 3 runs; B4 "
+          f"{t['b4']:.4f} ms ({t['b4_device']:.4f} ms device time; plain "
           f"{t['b4_plain']:.4f}), B5 {t['b5']:.4f} ms "
           f"({t['b5_device']:.4f} ms device time; plain "
           f"{t['b5_plain']:.4f}); energy + autograd forces: fused route "
@@ -720,7 +753,7 @@ def recip_phase(ctx):
     phases = pos.shape[0] * k_real
     t["b4_bound"] = bound(phases * B4_OPS, nbytes(posp, qp, kvec, *s_k))
     t["b5_bound"] = bound(phases * B5_OPS, nbytes(posp, qp, kvec, ab, f_k))
-    print(f"[kernel] B4 bound {t['b4_bound'][0]:.4f} ms, B5 bound "
+    print(f"[kernel] {b4n} bound {t['b4_bound'][0]:.4f} ms, {b5n} bound "
           f"{t['b5_bound'][0]:.4f} ms ({t['b4_bound'][1]})")
     t["b4_err"] = s_err
     t["b5_err"] = f_err
@@ -1008,9 +1041,10 @@ def check_finite(tag, ctx, system):
         raise AssertionError(f"{tag}: bad positions after the timed run")
 
 
-def drive(tag, ctx, n_steps, counters, card, dt):
+def drive(tag, ctx, n_steps, counters, card, dt, mark=None):
     """step(20) warm-up, then the counters set to 0 and step(n_steps)
-    timed; returns (steps/s, {counter: launches})."""
+    timed; returns (steps/s, {counter: launches}).  ``mark()`` runs between
+    the two."""
     import torch
     from openmm_velocityverlet_tpu_torch.units import ns_per_day
     t0 = time.perf_counter()
@@ -1018,6 +1052,8 @@ def drive(tag, ctx, n_steps, counters, card, dt):
     torch.cuda.synchronize()
     print(f"[{tag}] warm-up step(20) {time.perf_counter() - t0:.3f} s, "
           f"kinetic {ctx.kinetic_energy():.1f}")
+    if mark is not None:
+        mark()
     for fn in counters.values():
         fn.launches = 0
     syncs0, cov0, reb0 = ctx.host_syncs, ctx.coverage_rebuilds, ctx.rebuilds
@@ -1122,8 +1158,8 @@ def profile(tag, ctx, step_ms, top=12):
         return
     n_kernels = sum(e.count for e in kernels_ev)
     busy_ms = dev_us / 1e3 / 20
-    print(f"[profile {tag}] device busy {busy_ms:.3f} ms/step (kernel time "
-          f"of 20 profiled steps), {n_kernels / 20:.0f} kernels/step; "
+    print(f"[profile {tag}] device busy {busy_ms:.3f} ms/step (torch.profiler"
+          f" kernel time of 20 steps), {n_kernels / 20:.0f} kernels/step; "
           f"against the unprofiled {step_ms:.3f} ms/step the device idles "
           f"{100 * (1 - busy_ms / step_ms):.1f}% of the step")
     ranked = sorted(kernels_ev, key=lambda e: -e.self_device_time_total)
@@ -1158,15 +1194,22 @@ def wire_path5(integ, n_mol):
     integ.setCosAcceleration(0.02)
 
 
-def small_agreement(tag, wire=None, **opts):
+def small_agreement(tag, wire=None, make=None, prepare=None, **opts):
     """A 64-molecule system, 10 steps on the card against the CPU run of
     the same code (plain versions): positions and energy terms agree.
-    ``wire(integ, n_mol)`` sets integrator features."""
+    ``wire(integ, n_mol)`` sets integrator features; ``make()`` returns
+    (system, positions, box, wire, Context options) in place of the
+    drude_water box; ``prepare(ctx)`` runs after construction and returns
+    a record both runs must share (the barostat's accept sequence)."""
     import numpy as np
     from openmm_velocityverlet_tpu_torch import Context, VVIntegrator
     from openmm_velocityverlet_tpu_torch.models.drude_water import \
         drude_water_box
-    system, pos, box = drude_water_box(64, r_cutoff=0.7)
+    if make is None:
+        system, pos, box = drude_water_box(64, r_cutoff=0.7)
+    else:
+        system, pos, box, wire, more = make()
+        opts = dict(opts, **more)
     rng = np.random.default_rng(7)
     vel = rng.normal(0.0, 0.3, pos.shape) * (np.asarray(system.masses)
                                               > 0.5)[:, None]
@@ -1178,16 +1221,373 @@ def small_agreement(tag, wire=None, **opts):
             wire(integ, 64)
         ctx = Context(system, integ, positions=pos, box=box, device=dev,
                       **opts)
+        record = prepare(ctx) if prepare is not None else None
         ctx.set_velocities(vel)
         ctx.step(10)
-        out[dev] = (ctx.get_positions(), ctx.potential_energy_terms())
+        out[dev] = (ctx.get_positions(), ctx.potential_energy_terms(),
+                    record)
     dpos = float(np.abs(out[DEVICE][0] - out["cpu"][0]).max())
     worst = max(abs(out[DEVICE][1][k] - v) / (abs(v) + 1.0)
                 for k, v in out["cpu"][1].items())
     print(f"[check] {tag}: 64-molecule 10-step card vs CPU: max |dpos| = "
-          f"{dpos:.3e} nm, max term diff/(|E|+1) = {worst:.3e}")
-    if not (dpos < 1e-4 and worst < 1e-3):
+          f"{dpos:.3e} nm, max term diff/(|E|+1) = {worst:.3e}"
+          + (f"; record card {out[DEVICE][2]} CPU {out['cpu'][2]}"
+             if prepare is not None else ""))
+    if not (dpos < 1e-4 and worst < 1e-3
+            and out[DEVICE][2] == out["cpu"][2]):
         raise AssertionError(f"{tag}: card run disagrees with the CPU run")
+
+
+def edl_system(n_water=4200, n_pairs=700, elec_grid=(16, 26),
+               r_cutoff=R_CUTOFF, seed=5):
+    """A constant-voltage cell in the layout of tests/test_edl.py:15-78 at
+    edl_Im21's counts, built with the port's SystemBuilder and
+    models/helper.py as examples/run-edl.py wires it.  Not a model of the
+    package: the real edl_Im21 files are not in the repository.
+
+    Two electrodes of three layers of elec_grid neutral LJ sites (0.34 nm
+    apart) sit just above the plane z = 0 and just below the mirror plane
+    z = Lz/2; between them, on drude_water_box's 0.55 nm grid, n_water
+    molecules in its layout and n_pairs ion pairs in build_edl's (a
+    polarizable cation and an anion on two sites), the species on sites
+    drawn at random but listed in blocks (waters, cations, anions) as a
+    topology file lists its residues, which keeps the thermostat's
+    contiguous-molecule runs to one a species; then one massless image
+    per liquid atom, a trailing block at z' = Lz - z with the negated
+    charge, its parent's exclusions (mirror_image_exclusions) and LJ only
+    with the liquid (groups [(0,0),(0,2),(2,2),(1,0)]).  Returns (system,
+    positions, box, lz, {"elec", "liquid", "drudes", "image_pairs"})."""
+    import types
+    import numpy as np
+    from openmm_velocityverlet_tpu_torch import SystemBuilder
+    from openmm_velocityverlet_tpu_torch.models import helper
+    rng = np.random.default_rng(seed)
+    b = SystemBuilder()
+    ex, ey = elec_grid
+    lx, ly = ex * 0.34, ey * 0.34
+    nx, ny = max(1, round(lx / 0.55)), max(1, round(ly / 0.55))
+    n_sites = n_water + 2 * n_pairs
+    nz = -(-n_sites // (nx * ny))
+    top = 0.85 + (nz - 1) * 0.55                 # the last liquid layer
+    zm = top + 0.85                              # the mirror plane
+    lz = 2.0 * zm
+    box = np.array([lx, ly, lz])
+    pos, elec = [], []
+    gx, gy = np.meshgrid(np.arange(ex), np.arange(ey), indexing="ij")
+    for k, z in enumerate((0.10, 0.25, 0.40, zm - 0.40, zm - 0.25,
+                           zm - 0.10)):
+        off = 0.17 * (k % 2)
+        for x, y in zip(gx.reshape(-1), gy.reshape(-1)):
+            elec.append(b.add_particle(95.0, charge=0.0, lj_type=3))
+            pos.append([(x + 0.5) * 0.34 + off, (y + 0.5) * 0.34 + off, z])
+    sites = [((i % nx + 0.5) * lx / nx, ((i // nx) % ny + 0.5) * ly / ny,
+              0.85 + (i // (nx * ny)) * 0.55) for i in range(n_sites)]
+    kinds = ["w"] * n_water + ["c"] * n_pairs + ["a"] * n_pairs
+    liquid, drudes = [], []
+    for site, kind in zip(rng.permutation(n_sites), kinds):
+        cx, cy, cz = sites[site]
+        if kind == "w":
+            o = b.add_particle(15.2, charge=1.2, lj_type=0)
+            d = b.add_particle(0.4, charge=-1.0, lj_type=1)
+            h1 = b.add_particle(1.008, charge=-0.1, lj_type=1)
+            h2 = b.add_particle(1.008, charge=-0.1, lj_type=1)
+            mol = [o, d, h1, h2]
+            pos += [[cx, cy, cz], [cx + 1e-3, cy, cz],
+                    [cx + 0.0957, cy, cz], [cx, cy + 0.0957, cz]]
+            b.add_drude(d, o, -1, -1, -1, -1.0, 0.00097, 1.0, 1.0)
+            b.add_constraint(o, h1, 0.0957)
+            b.add_constraint(o, h2, 0.0957)
+            b.add_angle(h1, o, h2, 1.824, 300.0)
+            for i in mol:
+                for j in mol:
+                    if i < j:
+                        b.add_exclusion(i, j)
+        elif kind == "c":
+            c = b.add_particle(39.0, charge=1.8, lj_type=2)
+            d = b.add_particle(0.4, charge=-0.8, lj_type=1)
+            b.add_drude(d, c, -1, -1, -1, -0.8, 1e-3, 0.0, 0.0)
+            b.add_exclusion(c, d)
+            mol = [c, d]
+            pos += [[cx, cy, cz], [cx + 1e-3, cy, cz]]
+        else:
+            mol = [b.add_particle(35.0, charge=-1.0, lj_type=2)]
+            pos.append([cx, cy, cz])
+            d = None
+        liquid += mol
+        if d is not None:
+            drudes.append(d)
+    image_pairs = []
+    for p in liquid:
+        image_pairs.append((p, b.add_particle(1.0, lj_type=4)))
+        pos.append([pos[p][0], pos[p][1], lz - pos[p][2]])
+    b.set_lj_from_type_params([0.3166, 0.1, 0.35, 0.3, 0.1],
+                              [0.65, 0.0, 0.4, 0.6, 0.0])
+    built = types.SimpleNamespace(builder=b)
+    helper.assign_image_charges(built, image_pairs)
+    helper.mirror_image_exclusions(built, image_pairs)
+    groups = np.zeros(len(b.masses), np.int32)
+    groups[[i for _, i in image_pairs]] = 1
+    groups[elec] = 2
+    helper.set_lj_interaction_groups(built, groups,
+                                     [(0, 0), (0, 2), (2, 2), (1, 0)])
+    helper.add_molecule_links(built, image_pairs)
+    system = b.finalize(box, r_cutoff=r_cutoff, use_pme=True)
+    return system, np.asarray(pos, np.float32), box, lz, dict(
+        elec=elec, liquid=liquid, drudes=drudes, image_pairs=image_pairs)
+
+
+def edl_wiring(integ, lz, groups, langevin=True):
+    """examples/run-edl.py's wiring at 1 V (:105-119): Langevin on the
+    electrode, the mirror at Lz/2 with every image pair, the field 2 V / Lz
+    on the liquid."""
+    integ.setMaxDrudeDistance(0.02)
+    if langevin:
+        for i in groups["elec"]:
+            integ.addParticleLangevin(i)
+    integ.setMirrorLocation(lz / 2)
+    for parent, image in groups["image_pairs"]:
+        integ.addImagePair(image, parent)
+    integ.setElectricField(1.0 / lz * 2)
+    for i in groups["liquid"]:
+        integ.addParticleElectrolyte(i)
+
+
+def edl_externals(pos, lz, groups):
+    """run-edl's two external forces: the electrode restraint (:65-67) and
+    the liquid Drudes' z-wall (:69-73)."""
+    from openmm_velocityverlet_tpu_torch.ops import external
+    return [external.spring_self(groups["elec"], pos,
+                                 [0.01 * KCAL_A2, 0.01 * KCAL_A2,
+                                  5.0 * KCAL_A2]),
+            external.wall_lj126(groups["drudes"], 2, (0.0, lz / 2),
+                                epsilon=0.5 * 4.184, sigma=0.15)]
+
+
+def small_edl():
+    """make() of the 64-molecule-scale EDL check: edl_system at 48
+    molecules and 8 ion pairs between 6 x 6 electrode layers (648 atoms,
+    cutoff 0.9 nm as build_edl), wired without the Langevin electrode."""
+    system, pos, box, lz, groups = edl_system(48, 8, (6, 6), r_cutoff=0.9)
+    return (system, pos, box,
+            lambda integ, _n: edl_wiring(integ, lz, groups, langevin=False),
+            dict(external_forces=edl_externals(pos, lz, groups)))
+
+
+def mirror_gate(ctx):
+    """The mirror route against the explicit evaluation over all atoms on
+    the context's positions: energy, real-atom forces and image rows."""
+    import torch
+    from openmm_velocityverlet_tpu_torch.ops import ewald
+    s, st, ev = ctx.system, ctx.state, ctx.evaluator
+    n_real = ctx.image_mirror[0]
+    out = []
+    for mirror in (ctx.image_mirror, None):
+        p = st.pos.detach().clone().requires_grad_(True)
+        with torch.enable_grad():
+            e = ewald.reciprocal_energy(p, st.box, ev.t.charges,
+                                        s.ewald_beta, s.kmax,
+                                        chunk=ev.ewald_chunk, mirror=mirror)
+            (g,) = torch.autograd.grad(e, p)
+        out.append((float(e.detach()), g))
+    (e_m, g_m), (e_x, g_x) = out
+    scale = float(g_x[:n_real].abs().max())
+    err = (g_m[:n_real] - g_x[:n_real]).abs()
+    ok_f = bool(torch.all(err <= MIRROR_F_ATOL_REL * scale
+                          + MIRROR_F_RTOL * g_x[:n_real].abs()))
+    img_max = float(g_m[n_real:].abs().max())
+    print(f"[edl] mirror reciprocal {e_m:.6f} against the explicit "
+          f"{e_x:.6f} over all {st.pos.shape[0]} atoms (rtol "
+          f"{MIRROR_E_RTOL}); real-atom forces max |dF| "
+          f"{float(err.max()):.3e} (rtol {MIRROR_F_RTOL}, atol "
+          f"{MIRROR_F_ATOL_REL} x {scale:.3f}); image rows max "
+          f"{img_max}")
+    if not (abs(e_m - e_x) <= MIRROR_E_RTOL * abs(e_x) and ok_f
+            and img_max == 0.0):
+        raise AssertionError("the mirror reciprocal disagrees with the "
+                             "explicit evaluation")
+    return e_m
+
+
+def edl_path(card, dt, counters):
+    """Path 6: constant voltage at edl_Im21's counts on the mirror route;
+    its gates, B1 on its culled group-rows list, and the fused leg.
+    Returns the numbers of the kernels line."""
+    import numpy as np
+    import torch
+    from openmm_velocityverlet_tpu_torch import Context, VVIntegrator
+    from openmm_velocityverlet_tpu_torch.ops import pair_plist as pp
+    t0 = time.perf_counter()
+    system, pos, box, lz, groups = edl_system()
+    integ = VVIntegrator(333, 10, 1, 40, 0.001)
+    edl_wiring(integ, lz, groups)
+    externals = edl_externals(pos, lz, groups)
+    t1 = time.perf_counter()
+    ctx = Context(system, integ, positions=pos, box=box, device=DEVICE,
+                  external_forces=externals)
+    ctx.set_velocities_to_temperature(333.0)
+    ev = ctx.evaluator
+    inert = ev._inert_mask
+    rc_cand = system.r_cutoff + ev.skin
+    culled = [pp.count_candidates_np(pos, box, ev.pair_ts, rc_cand,
+                                     mode=ev.plist_sort, inert=m)
+              for m in (None, inert)]
+    print(f"[edl] {system.n_atoms} atoms ({len(groups['elec'])} electrode, "
+          f"{len(groups['liquid'])} liquid, {len(groups['image_pairs'])} "
+          f"images), box {np.round(box, 3).tolist()} nm, kmax "
+          f"{system.kmax}, mirror {ctx.image_mirror}; built in "
+          f"{t1 - t0:.1f} s, Context in {time.perf_counter() - t1:.1f} s; "
+          f"ts {ev.pair_ts} sort {ev.plist_sort} nowrap {ev.plist_nowrap}, "
+          f"list capacity {ev.plist_cap} (energy list {ev.plist_cap_all}); "
+          f"the inert cull removes {culled[0] - culled[1]} of "
+          f"{culled[0]} candidate tile pairs; thermostat molecule runs "
+          f"{ctx._thermo['mol_runs']}")
+    if ctx.image_mirror is None:
+        raise AssertionError("the EDL layout did not take the mirror route")
+    _, el, launches = drive("edl", ctx, 100, counters, card, dt)
+    if launches["B1"] < 100:
+        raise AssertionError(f"B1 launched {launches['B1']} < 100 times")
+    check_finite("edl", ctx, system)
+    profile("path 6", ctx, el / 100 * 1e3, top=8)
+
+    p = ctx.get_positions()
+    pairs = np.asarray(groups["image_pairs"])
+    par, img = pairs[:, 0], pairs[:, 1]
+    zm = ctx.data.mirror_location
+    sync = max(float(np.abs(p[img, :2] - p[par, :2]).max()),
+               float(np.abs(p[img, 2] - (2 * zm - p[par, 2])).max()))
+    terms = ctx.potential_energy_terms()
+    coul = abs(terms["coul_direct"]) / system.n_atoms
+    dz = float(np.abs(p[groups["elec"], 2] - pos[groups["elec"], 2]).max())
+    dmax = float(p[groups["drudes"], 2].max())
+    print(f"[edl] image sync max error {sync:.3e} nm (atol "
+          f"{IMAGE_SYNC_ATOL}); |coul_direct| {coul:.2f} kJ/mol an atom "
+          f"(limit {COUL_PER_ATOM}); electrode max |dz| {dz:.4f} nm (limit "
+          f"0.2); liquid Drude max z {dmax:.4f} nm (limit Lz/2 + 0.05 = "
+          f"{lz / 2 + 0.05:.4f}); external_0 {terms['external_0']:.3f}, "
+          f"external_1 {terms['external_1']:.3f}, group 0 "
+          f"{ctx.group_energies()[0]:.3f} kJ/mol")
+    if not (sync <= IMAGE_SYNC_ATOL and coul < COUL_PER_ATOM and dz < 0.2
+            and dmax < lz / 2 + 0.05):
+        raise AssertionError("path 6 failed an EDL gate")
+    e_mirror = mirror_gate(ctx)
+
+    # B1 in its group-rows form on the step's list (inert tile pairs
+    # culled), on the path's positions with every Drude 0.05 nm from its
+    # core and the images synced (see jittered_positions: the energy form's
+    # excluded-pair force is float32 noise at the path's 0.001-0.02 nm)
+    from openmm_velocityverlet_tpu_torch.integrators import stepping
+    st = ctx.state
+    dp = torch.as_tensor(np.asarray(system.drude_pairs), device=ctx.device)
+    g = torch.Generator(device=ctx.device)
+    g.manual_seed(1)
+    u = torch.randn((dp.shape[0], 3), generator=g, device=ctx.device)
+    pos_b = st.pos.clone()
+    pos_b[dp[:, 0]] = pos_b[dp[:, 1]] + 0.05 * u / u.norm(dim=1,
+                                                            keepdim=True)
+    pos_b = stepping.update_image_positions(pos_b, ctx._images, zm)
+    cache = ev.make_pair_cache(pos_b, st.box)
+    if bool(cache.overflow):
+        ctx._refit(pos_b, st.box)
+        cache = ev.make_pair_cache(pos_b, st.box)
+    stack = cache.ab2.shape[0] // cache.perm.shape[0]
+    if stack != 3 or cache.tile_inert is None:
+        raise AssertionError("path 6's list is not in group-rows form with "
+                             "the inert cull")
+    res, evals, tensors = b1_case("B1 edl", ev, cache, pos_b, st.box,
+                                  system)
+    inert_d = torch.as_tensor(inert, device=ctx.device)
+    pairs_f = cutoff_pairs(ev.place_vsites(pos_b), st.box, system.r_cutoff,
+                           inert=inert_d)
+    b_ms, b_by = bound(pairs_f * PAIR_OPS, nbytes(*tensors))
+    n_active = int(((cache.plist & 1) == 1).sum())
+    print(f"[kernel] B1 edl: stack {stack} (group rows), {n_active} entries, "
+          f"{evals / 1e6:.2f} M evaluations, {pairs_f / 1e6:.3f} M cutoff "
+          f"pairs not both images ({evals / pairs_f:.2f} evaluations a "
+          f"pair); device {res['force'][3]:.4f} ms force, "
+          f"{res['energy'][3]:.4f} ms energy; bound {b_ms:.4f} ms ({b_by})")
+
+    # the fused leg: B4/B5 over all atoms, images included
+    ctx_f = Context(system, integ, positions=ctx.get_positions(), box=box,
+                    device=DEVICE, external_forces=externals,
+                    recip="exact_fused", pair_ts=ev.pair_ts)
+    ctx_f.set_velocities(ctx.get_velocities())
+    e_fused = ctx_f.potential_energy_terms()["coul_recip"]
+    print(f"[edl] fused route coul_recip {e_fused:.6f} at the leg's start, "
+          f"mirror route {e_mirror:.6f} (rtol {MIRROR_E_RTOL})")
+    if abs(e_fused - e_mirror) > MIRROR_E_RTOL * abs(e_mirror):
+        raise AssertionError("the fused route disagrees with the mirror "
+                             "route")
+    # B4 (its nz groups cut over grid.z at this tall kmax) and B5 mode by
+    # mode and atom by atom against their plain versions at the leg's shapes
+    recip = recip_phase(ctx_f, " edl")
+    from openmm_velocityverlet_tpu_torch.ops import ewald_fused as ef
+    fc = {"B1": pp.plist_pair, "B4": ef.structure_factor,
+          "B5": ef.recip_forces}
+    for fn in fc.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    ctx_f.step(20)
+    torch.cuda.synchronize()
+    lf = {k: fn.launches for k, fn in fc.items()}
+    print(f"[edl fused] 20 steps in {time.perf_counter() - t0:.3f} s; "
+          f"launches {lf}")
+    if lf["B4"] < 20 or lf["B5"] < 20:
+        raise AssertionError("the fused leg did not launch B4/B5 each step")
+    check_finite("edl fused", ctx_f, system)
+    return dict(launches=launches["B1"], fused=lf, b1=res, evals=evals,
+                pairs=pairs_f, bound_ms=b_ms, bound_by=b_by, recip=recip)
+
+
+def npt_gate(ctx, attempts=8, want=2):
+    """Up to ``attempts`` more barostat attempts, one step at a time, until
+    ``want`` were accepted: each accepted move leaves every term finite,
+    its step trips no coverage check, and the box is the old one scaled by
+    the move's axis_scale."""
+    import numpy as np
+    freq = ctx.barostat.frequency
+    taken = 0
+    for _ in range(attempts * freq):
+        due = ctx.current_step % freq == 0
+        box0, acc0, cov0 = ctx.get_box(), ctx.baro_accepts, \
+            ctx.coverage_rebuilds
+        ctx.step(1)
+        if not due or ctx.baro_accepts == acc0:
+            continue
+        taken += 1
+        scale = ctx.baro_last_scale.cpu().numpy()
+        box1 = ctx.get_box()
+        terms = ctx.potential_energy_terms()
+        finite = all(np.isfinite(v) for v in terms.values())
+        print(f"[npt] accepted move at step {ctx.current_step - 1}: box "
+              f"{box0.tolist()} -> {box1.tolist()}, axis_scale "
+              f"{scale.tolist()}, coverage trips on its step "
+              f"{ctx.coverage_rebuilds - cov0}, terms finite {finite}")
+        if not (finite and ctx.coverage_rebuilds == cov0
+                and np.array_equal(box1, (box0 * scale).astype(np.float32))):
+            raise AssertionError("an accepted barostat move failed its gate")
+        if taken >= want:
+            return taken
+    if not taken:
+        raise AssertionError(f"no barostat move accepted in {attempts} "
+                             f"attempts")
+    return taken
+
+
+def npt_draws(ctx):
+    """prepare() of the small NPT check: the barostat's draws from a numpy
+    stream seeded alike on both devices, and its accept sequence logged."""
+    import numpy as np
+    rng = np.random.default_rng(11)
+    ctx._barostat_draws = lambda: {"u_dv": float(rng.uniform()),
+                                   "u_acc": float(rng.uniform())}
+    log = []
+    real = ctx._barostat_attempt
+
+    def logged():
+        log.append(real())
+        return log[-1]
+    ctx._barostat_attempt = logged
+    return log
 
 
 def main():
@@ -1304,6 +1704,38 @@ def main():
         raise AssertionError("get_viscosity() is not finite")
     profile("path 5", ctx5, el5 / 100 * 1e3, top=6)
     vv_carry_gate(ctx5, {"B1": pp.plist_pair})
+    del ctx2, ctx3, ctx4, ctx5
+    torch.cuda.empty_cache()
+
+    # path 6: constant voltage at edl_Im21's counts (mirror route)
+    edl = edl_path(card, dt, {"B1": pp.plist_pair})
+    torch.cuda.empty_cache()
+
+    # path 7: NPT with the Monte Carlo barostat
+    from openmm_velocityverlet_tpu_torch import BarostatConfig
+    ctx7, _ = context(barostat=BarostatConfig("iso", 1.0, 333.0,
+                                              frequency=25))
+    before = {}
+
+    def mark():
+        before.update(att=ctx7.baro_attempts, acc=ctx7.baro_accepts,
+                      vol=float(np.prod(ctx7.get_box().astype(np.float64))))
+    _, el7, l7 = drive("npt", ctx7, 200, {"B1": pp.plist_pair}, card, dt,
+                       mark=mark)
+    vol0, vol1 = before["vol"], float(np.prod(ctx7.get_box().astype(
+        np.float64)))
+    att = ctx7.baro_attempts - before["att"]
+    acc = ctx7.baro_accepts - before["acc"]
+    print(f"[npt] {att} attempts, {acc} accepted in the timed 200 steps "
+          f"(all runs: {ctx7.baro_attempts} / {ctx7.baro_accepts}); volume "
+          f"{vol0:.4f} -> {vol1:.4f} nm^3; move size "
+          f"{float(ctx7.baro_state.volume_scale):.4f} nm^3")
+    if att != 8 or l7["B1"] < 200:
+        raise AssertionError(f"path 7: {att} attempts (expected 8), B1 "
+                             f"launched {l7['B1']} times")
+    check_finite("npt", ctx7, system)
+    profile("path 7", ctx7, el7 / 200 * 1e3, top=6)
+    npt_gate(ctx7)
 
     small_agreement("path 1")
     small_agreement("path 2 (fold_exc14, pair_ts 32)", fold_exc14=True,
@@ -1314,8 +1746,21 @@ def main():
                     wire=functools.partial(wire_path4, langevin=False))
     small_agreement("path 5 (vanilla VV, cosine acceleration)",
                     wire=wire_path5)
+    small_agreement("path 6 (EDL at 648 atoms, mirror route, without the "
+                    "Langevin electrode)", make=small_edl)
+    small_agreement("path 7 (barostat every 2 steps, same draws)",
+                    prepare=npt_draws,
+                    barostat=BarostatConfig("iso", 1.0, 333.0, frequency=2))
 
     f, e = b1["force"], b1["energy"]
+
+    def edl_recip(k):
+        # B4 or B5 at path 6's fused leg
+        r = edl["recip"]
+        return {"edl_max_abs_err": r[k + "_err"], "edl_ms": r[k],
+                "edl_device_ms": r[k + "_device"],
+                "edl_plain_ms": r[k + "_plain"],
+                "edl_bound_ms": r[k + "_bound"][0]}
     src = "openmm_velocityverlet_tpu_torch/csrc/"
     ref = "openmm_velocityverlet_tpu/ops/"
     print(json.dumps({"kernels": [
@@ -1326,7 +1771,13 @@ def main():
          "bound_ms": b1_bound, "bound_by": b1_by, "library_ms": None,
          "device_ms": f[3], "energy_ms": e[1], "energy_plain_ms": e[2],
          "energy_device_ms": e[3], "tile_size": ctx1.evaluator.pair_ts,
-         "evaluations": b1_evals, "cutoff_pairs": b1_pairs},
+         "evaluations": b1_evals, "cutoff_pairs": b1_pairs,
+         "launches_edl": edl["launches"], "launches_npt": l7["B1"],
+         "edl_device_ms": edl["b1"]["force"][3],
+         "edl_max_abs_err": max(edl["b1"]["force"][0],
+                                edl["b1"]["energy"][0]),
+         "edl_evaluations": edl["evals"], "edl_cutoff_pairs": edl["pairs"],
+         "edl_bound_ms": edl["bound_ms"]},
         {"name": "tri_pair", "route": "cuda", "source": src + "tri_pair.cu",
          "replaces": ref + "pallas_pair.py:561", "launches": l2["B2"],
          "max_abs_err": b2["max_abs_err"], "ms": b2["ms"],
@@ -1344,14 +1795,18 @@ def main():
          "plain_ms": rc["b4_plain"], "bound_ms": rc["b4_bound"][0],
          "bound_by": rc["b4_bound"][1], "library_ms": None,
          "device_ms": rc["b4_device"], "matmul_route_ms": rc["matmul_route"],
-         "fused_route_ms": rc["fused_route"]},
+         "fused_route_ms": rc["fused_route"],
+         "launches_edl_fused": edl["fused"]["B4"],
+         **edl_recip("b4")},
         {"name": "ewald_force", "route": "cuda",
          "source": src + "ewald_fused.cu",
          "replaces": ref + "ewald_pallas.py:99", "launches": l3["B5"],
          "max_abs_err": rc["b5_err"], "ms": rc["b5"],
          "plain_ms": rc["b5_plain"], "bound_ms": rc["b5_bound"][0],
          "bound_by": rc["b5_bound"][1], "library_ms": None,
-         "device_ms": rc["b5_device"]},
+         "device_ms": rc["b5_device"],
+         "launches_edl_fused": edl["fused"]["B5"],
+         **edl_recip("b5")},
         {"name": "rect_pair", "route": "cuda", "source": src + "rect_pair.cu",
          "replaces": ref + "pallas_pair.py:454", "launches": b3["launches"],
          "max_abs_err": b3["max_abs_err"], "ms": b3["ms"],

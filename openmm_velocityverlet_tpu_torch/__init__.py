@@ -3,7 +3,10 @@
 
 Module names and layout follow the JAX package, which stays the reference.
 The port carries the middle and vanilla VV schemes with the TGNH and
-partitioned Langevin thermostats, the E-field and cosine acceleration.
+partitioned Langevin thermostats, the E-field and cosine acceleration,
+image-charge constant voltage with the external-force toolbox
+(``ops/external.py``, ``models/helper.py``, ``edl_analysis.py``) and the
+Monte Carlo barostat.
 Its hand-written CUDA kernels for Hopper are B1, the plist pair sweep
 (``csrc/plist_pair.cu``), B2, the upper-triangle band / full sweep
 (``csrc/tri_pair.cu``), B3, the rectangular sweep (``csrc/rect_pair.cu``),
@@ -14,11 +17,13 @@ version for CPU tensors.  Entry points run on the card unless given
 """
 from .context import Context
 from .forces import ForceEvaluator
+from .integrators.barostat import BarostatConfig
 from .integrators.vv import VVIntegrator
 from .models.builder import SystemBuilder
 from .system import (State, System, make_state, state_from_numpy,
                      system_from_numpy)
 
-__all__ = ["Context", "ForceEvaluator", "VVIntegrator", "SystemBuilder",
+__all__ = ["Context", "ForceEvaluator", "VVIntegrator", "BarostatConfig",
+           "SystemBuilder",
            "State", "System", "make_state", "state_from_numpy",
            "system_from_numpy"]

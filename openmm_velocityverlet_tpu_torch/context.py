@@ -4,13 +4,16 @@ dynamic state (counterpart of ``openmm_velocityverlet_tpu/context.py``).
 ``step(n)`` runs the middle scheme (VVIntegrator::stepMiddle,
 VVIntegrator.cpp:232-338), or the vanilla VV scheme (stepVV) after
 ``setUseMiddleScheme(False)``, eagerly on ``device`` (the card unless the
-caller passes ``device="cpu"``): CM-motion removal, forces with the cached
-pair sort (plist list or z band) plus the extra forces (E-field, cosine
+caller passes ``device="cpu"``): CM-motion removal, the Monte Carlo
+barostat's attempt every ``frequency`` steps, forces with the cached pair
+sort (plist list or z band) plus the extra forces (E-field, cosine
 acceleration; in the VV scheme also the Langevin drag and noise), the
 kicks, RATTLE, the TGNH thermostat with the cosine velocity bias removed
 and restored around it, the Langevin Ornstein-Uhlenbeck map (middle
 scheme), drift on compensated two-float positions, SHAKE with its velocity
-correction and the Drude hard wall.  The VV scheme carries the forces of
+correction, the Drude hard wall and the image-charge sync (each image takes
+its parent's x, y and the mirrored z; ``pos_err`` is zeroed on the rows it
+moved).  The VV scheme carries the forces of
 the step's second evaluation into the next step, across ``step()`` calls
 and cache rebuilds; ``set_positions`` and ``set_velocities`` invalidate
 them.  Langevin noise is drawn from ``State.generator`` (its numbers differ
@@ -27,8 +30,27 @@ package, a flagged rebuild (list overflow, or a nowrap frame that no longer
 fits) is refitted from the current configuration before it runs, instead of
 running the flagged list (ROADMAP C).
 
+Constant voltage: when the image pairs are a contiguous trailing block
+mirroring the block just before it, with q_img = -q_parent exactly, the
+matmul reciprocal derives the images' structure factor from the parents'
+(``ewald.reciprocal_energy(mirror=)``); any other layout takes the explicit
+evaluation over all atoms.  The JAX package's detection admits parents that
+end before the images begin and never checks the charges (ROADMAP C).
+
+The barostat's attempt reads its accept flag, and the flags of the two
+energy lists, on the host in one read (counted in ``host_syncs``); an
+accepted move rebuilds the pair cache, drops the VV force carry and zeroes
+``pos_err``.  k vectors, the nowrap frame's budget and the dispersion
+correction are computed from the box at every call.  Energy queries (the
+attempt's two, ``potential_energy_terms``, ``get_forces``) go through
+``Context._energy_query``: a flagged energy list (a lattice start pulled a
+whole shell of tile pairs inside the candidate radius, or a nowrap frame
+no longer fits the scaled box) repeats the query, or the attempt with the
+same draws, on the full list
+(``ForceEvaluator.energy_forces(full_list=True)``).
+
 What this port does not carry raises NotImplementedError at construction:
-image pairs (A11), the barostat (A12) and the mesh (A16).
+the mesh (A16).
 """
 from __future__ import annotations
 
@@ -39,6 +61,7 @@ import numpy as np
 import torch
 
 from .forces import ForceEvaluator
+from .integrators import barostat as baro_mod
 from .integrators import stepping
 from .integrators.vv import IntegratorData, VVIntegrator
 from .ops import constraints as cons_mod
@@ -46,16 +69,23 @@ from .system import State, System, make_state, resolve_device
 from .units import BOLTZ
 
 
-def _refuse_unported(data: IntegratorData, barostat, mesh):
-    if data.image_pairs.shape[0]:
-        raise NotImplementedError(
-            "image pairs (constant voltage) are not ported yet (ROADMAP A11)")
-    if barostat is not None:
-        raise NotImplementedError(
-            "the Monte Carlo barostat is not ported yet (ROADMAP A12)")
-    if mesh is not None:
-        raise NotImplementedError(
-            "the multi-device mesh is not ported yet (ROADMAP A16)")
+def image_mirror(data: IntegratorData, charges):
+    """(img0, par0, count, mirror_z) when the image pairs are a contiguous
+    trailing block of images, in order, whose parents are the block just
+    before it, with each image's charge exactly the negated parent's; else
+    None (the explicit evaluation over all atoms)."""
+    ip = np.asarray(data.image_pairs)
+    if not ip.shape[0]:
+        return None
+    k, n = ip.shape[0], np.asarray(charges).shape[0]
+    img0, par0 = int(ip[0, 0]), int(ip[0, 1])
+    q = np.asarray(charges)
+    if (par0 + k == img0 and img0 + k == n
+            and np.array_equal(ip[:, 0], np.arange(img0, n))
+            and np.array_equal(ip[:, 1], np.arange(par0, img0))
+            and np.array_equal(q[img0:], -q[par0:img0])):
+        return (img0, par0, k, float(data.mirror_location))
+    return None
 
 
 class Context:
@@ -69,6 +99,9 @@ class Context:
                  device="cuda"):
         if box is None:
             raise ValueError("box is required")
+        if mesh is not None:
+            raise NotImplementedError(
+                "the multi-device mesh is not ported yet (ROADMAP A16)")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # the reciprocal contraction must stay in full float32
@@ -76,15 +109,15 @@ class Context:
         self.system = system
         self.integrator = integrator
         self.data: IntegratorData = integrator.build_data(system)
-        _refuse_unported(self.data, barostat, mesh)
         self.sort_refresh = int(sort_refresh)
         box = np.asarray(box, np.float32)
+        self.image_mirror = image_mirror(self.data, system.charges)
         self.evaluator = ForceEvaluator(
             system, external_forces, ewald_chunk=ewald_chunk,
             row_block=row_block, pair_ts=pair_ts, fold_exc14=fold_exc14,
-            recip=recip, box_hint=box, pos_hint=positions, mesh=mesh,
+            recip=recip, box_hint=box, pos_hint=positions,
             strict_pairs=strict_pairs, pair_kernel=pair_kernel,
-            device=self.device)
+            image_mirror=self.image_mirror, device=self.device)
         self.cons = cons_mod.build_constraint_data(
             np.asarray(system.constraints), np.asarray(system.constraint_dist),
             np.asarray(system.inv_masses),
@@ -117,6 +150,14 @@ class Context:
                 fz[:, None] * np.asarray([0.0, 0.0, 1.0], np.float32),
                 device=self.device)
         self._ex = torch.tensor([1.0, 0.0, 0.0], device=self.device)
+        self._images = (torch.as_tensor(
+            np.asarray(data.image_pairs, np.int64), device=self.device)
+            if data.image_pairs.shape[0] else None)
+        self.barostat = barostat
+        if barostat is not None:
+            self._baro_mol = baro_mod.molecule_tables(system, self.device)
+            self.baro_state = baro_mod.make_barostat_state(
+                float(np.prod(box.astype(np.float64))), self.device)
         self._has_extra = (self._langevin is not None
                            or self._efield is not None
                            or data.cos_acceleration != 0)
@@ -128,11 +169,16 @@ class Context:
         self._forces_valid = False
         # counters of the segment loop: cache rebuilds, segments ended by
         # a coverage trip, pair-list refits, and host reads of device
-        # values during step()
+        # values (those of step() and of the energy queries)
         self.rebuilds = 0
         self.coverage_rebuilds = 0
         self.refits = 0
         self.host_syncs = 0
+        # the barostat's attempts and acceptances since construction, and
+        # the box scale of its last accepted move
+        self.baro_attempts = 0
+        self.baro_accepts = 0
+        self.baro_last_scale = None
         if positions is not None:
             self.set_positions(positions)
 
@@ -190,9 +236,49 @@ class Context:
     def kinetic_energy(self):
         return float(stepping.kinetic_energy(self.state.vel, self._masses))
 
+    def _refit(self, pos, box):
+        note = self.evaluator.refit_pair_list(pos, box)
+        self.refits += 1
+        print(f"[vv-torch] pair list refit after a flagged rebuild: {note}",
+              file=sys.stderr)
+
+    def _energy_query(self, query):
+        """The one rule of the energy queries, which build their own pair
+        list: ``query(full_list)`` evaluates through
+        ``ForceEvaluator.energy_forces(..., return_cov=True,
+        full_list=full_list)`` and returns (result, reads), device scalars
+        for the host whose last is the OR of its lists' flags.  The reads
+        come to the host in one read (counted in ``host_syncs``); where a
+        list came back flagged (overflow, or a nowrap frame that no longer
+        fits) it missed pairs, and the query is repeated on the full list,
+        which cannot be flagged.  Returns (result, the values read before
+        the flag)."""
+        plist = self.evaluator.pair_mode == "plist"
+        for full in (False, True):
+            result, reads = query(full)
+            reads = reads if plist else reads[:-1]
+            values = []
+            if reads:
+                values = torch.stack([torch.as_tensor(
+                    r, dtype=torch.bool, device=self.device)
+                    for r in reads]).tolist()
+                self.host_syncs += 1
+            if not plist:
+                return result, values
+            if not values[-1]:
+                return result, values[:-1]
+        raise RuntimeError("the full energy list came back flagged")
+
+    def _energy_forces(self, pos, box):
+        """(terms, forces) of an energy query (device tensors)."""
+        def query(full):
+            terms, f, bad = self.evaluator.energy_forces(
+                pos, box, return_cov=True, full_list=full)
+            return (terms, f), [bad]
+        return self._energy_query(query)[0]
+
     def potential_energy_terms(self):
-        terms, _ = self.evaluator.energy_forces(self.state.pos,
-                                                self.state.box)
+        terms, _ = self._energy_forces(self.state.pos, self.state.box)
         return {k: float(v) for k, v in terms.items()}
 
     def potential_energy(self):
@@ -203,7 +289,7 @@ class Context:
             self.potential_energy_terms()).items()}
 
     def get_forces(self):
-        _, f = self.evaluator.energy_forces(self.state.pos, self.state.box)
+        _, f = self._energy_forces(self.state.pos, self.state.box)
         return f.cpu().numpy()
 
     def get_viscosity(self):
@@ -234,10 +320,7 @@ class Context:
             self.host_syncs += 1
             if not bool(cache.overflow):
                 return cache
-            note = ev.refit_pair_list(st.pos, st.box)
-            self.refits += 1
-            print(f"[vv-torch] pair list refit after a flagged rebuild: "
-                  f"{note}", file=sys.stderr)
+            self._refit(st.pos, st.box)
         raise RuntimeError("pair list still flagged after refitting")
 
     @torch.no_grad()
@@ -249,10 +332,14 @@ class Context:
             self._step_vv
         n = int(n)
         done = 0
+        baro = self.barostat
         while done < n:
             cache = self._fresh_cache() if ev.uses_band else None
             lim = min(done + self.sort_refresh, n)
             while done < lim:
+                if baro is not None and self.state.step % baro.frequency == 0 \
+                        and self._barostat_attempt() and ev.uses_band:
+                    cache = self._fresh_cache()
                 cov = one_step(cache)
                 done += 1
                 if ev.uses_band:
@@ -262,6 +349,52 @@ class Context:
                     if bool(cov):
                         self.coverage_rebuilds += 1
                         break
+
+    def _barostat_draws(self):
+        return baro_mod.draw(self.barostat.kind, self.state.generator,
+                             self.device)
+
+    def _barostat_attempt(self) -> bool:
+        """One MC volume attempt (the JAX ``update_context_state``); returns
+        whether it was accepted.  The accept flag and the energy lists'
+        flags come to the host in one read; a flagged list repeats the
+        attempt, with the same draws, on the full list."""
+        st, ev = self.state, self.evaluator
+        draws = self._barostat_draws()
+
+        def query(full):
+            flags = []
+
+            def energy(pos, box):
+                terms, _, bad = ev.energy_forces(pos, box, return_cov=True,
+                                                 full_list=full)
+                flags.append(torch.as_tensor(bad, device=self.device))
+                return sum(terms.values())
+            move = baro_mod.attempt_move(self.barostat, self.baro_state,
+                                         st.pos, st.box, self._baro_mol,
+                                         energy, draws)
+            return move, [move[0], flags[0] | flags[1]]
+        (_, pos, box, bst, scale), (accepted,) = self._energy_query(query)
+        self.baro_state = bst
+        self.baro_attempts += 1
+        if accepted:
+            self.baro_accepts += 1
+            self.baro_last_scale = scale
+            self.state = st.replace(pos=pos, box=box,
+                                    pos_err=torch.zeros_like(st.pos_err))
+            self._forces_valid = False
+        return accepted
+
+    def _sync_images(self, new_pos, new_err):
+        """Images onto their parents' mirror; ``pos_err`` zeroed on every
+        row the sync moved."""
+        if self._images is None:
+            return new_pos, new_err
+        img_pos = stepping.update_image_positions(
+            new_pos, self._images, self.data.mirror_location)
+        moved = (img_pos != new_pos).any(-1, keepdim=True)
+        return img_pos, torch.where(moved, torch.zeros_like(new_err),
+                                    new_err)
 
     def _draws(self, *shapes):
         """Standard normal float32 draws from the State's generator, one
@@ -351,6 +484,7 @@ class Context:
         hw_pos, vel = stepping.apply_hardwall(new_pos, vel, self._hardwall)
         new_pos, new_err = stepping.compensated_add(new_pos, new_err,
                                                     hw_pos - new_pos)
+        new_pos, new_err = self._sync_images(new_pos, new_err)
         self.state = st.replace(pos=new_pos, pos_err=new_err, vel=vel,
                                 step=st.step + 1, time=st.time + dt)
         return cov
@@ -391,6 +525,7 @@ class Context:
         hw_pos, vel = stepping.apply_hardwall(new_pos, vel, self._hardwall)
         new_pos, new_err = stepping.compensated_add(new_pos, new_err,
                                                     hw_pos - new_pos)
+        new_pos, new_err = self._sync_images(new_pos, new_err)
         _, F2, cov = ev.energy_forces(new_pos, box, want_energy=False,
                                       pair_cache=cache, return_cov=True)
         Fx2 = (self._extra_forces(new_pos, vel, box, ld_as_force=True)

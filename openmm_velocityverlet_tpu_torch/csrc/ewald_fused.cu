@@ -31,9 +31,11 @@
 //     (106 at kmax 20), already signed, padded with zeros to whole tiles and
 //     with q folded into the x table, so the main kernel only copies them.
 //   * structure_tile_kernel.  The flattened (nx, group of 4 ny) axis is cut
-//     into "slots"; a block takes sb slots (a multiple of 32) and all nz
-//     groups, thread = (nz group, slot) with the slot fastest, so the lanes
-//     of a warp share their nz group.  For 32 atoms at a time the block
+//     into "slots"; a block takes sb slots (a multiple of 32) and nzb nz
+//     groups (all of them where sb x nzg threads fit a block; grid.z cuts
+//     them otherwise, as a tall cell's kmz needs), thread = (nz group,
+//     slot) with the slot fastest, so the lanes of a warp share their nz
+//     group.  For 32 atoms at a time the block
 //     copies its rows of the tables into shared memory (two barriers for 32
 //     atoms).  In the loop a thread reads q ex of its nx (a few addresses a
 //     warp), its four ey as two 16-byte words (rows of odd stride: no bank
@@ -111,6 +113,7 @@ struct TileParams {
   int n_tab;           // atoms of a table row: n_pad rounded up to 32
   int sb;              // slots a block
   int nyg, nzg;        // groups of 4 ny, of 7 nz
+  int nzb;             // nz groups a block (gridDim.z * nzb >= nzg)
   int stot;            // slots of all blocks (gridDim.x * sb)
   int atoms_per;       // atoms a range (a multiple of kStageAtoms)
   int nxr;             // nx values a block's slots can touch
@@ -179,7 +182,7 @@ __global__ void phase_table_kernel(TileParams p) {
 
 // Dynamic shared memory: y [2 nyg][kStageAtoms + 1] float4 (the odd stride
 // keeps the lanes' 16-byte reads on distinct banks), x [nxr][kStageAtoms + 2]
-// float2, z [nzg * 7][kStageAtoms] float2.
+// float2, z [nzb * 7][kStageAtoms] float2 (the block's nz groups).
 __global__ void __launch_bounds__(kMaxTileThreads, 2)
 structure_tile_kernel(TileParams p) {
   extern __shared__ __align__(16) float4 smem_t[];
@@ -189,8 +192,13 @@ structure_tile_kernel(TileParams p) {
   float2* sX = reinterpret_cast<float2*>(sY + 2 * nyg * SY);
   float2* sZ = sX + nxr * SX;
   const int tid = threadIdx.x;
-  const int zg = tid / sb;            // the warp's nz group
-  const int sl = tid - zg * sb;       // slot inside the block
+  const int zl = tid / sb;            // the warp's nz group in the block
+  const int z0 = blockIdx.z * p.nzb;  // the block's first nz group
+  const int zg = z0 + zl;             // the warp's nz group
+  // z rows the block stages: its nz groups that exist (the last block's
+  // warps beyond nzg read rows nobody wrote and write nothing)
+  const int nzl = min(p.nzb, p.nzg - z0) * kTileZ;
+  const int sl = tid - zl * sb;       // slot inside the block
   const int s = blockIdx.x * sb + sl;
   const int ix0 = (blockIdx.x * sb) / nyg;  // first x row of the block
   const int jx = s / nyg - ix0;             // this slot's x row in the block
@@ -211,7 +219,7 @@ structure_tile_kernel(TileParams p) {
   const float2* myX = sX + jx * SX;
   const float4* myLo = sY + g * SY;
   const float4* myHi = sY + (nyg + g) * SY;
-  const float2* myZ = sZ + zg * kTileZ * CA;
+  const float2* myZ = sZ + zl * kTileZ * CA;
   for (int a0 = a_begin; a0 < a_end; a0 += CA) {
     __syncthreads();  // the previous atoms are read out
     for (int i = tid; i < 2 * nyg * CA; i += blockDim.x) {
@@ -222,9 +230,9 @@ structure_tile_kernel(TileParams p) {
       const int row = i / CA, a = i - row * CA;
       sX[row * SX + a] = gX[(size_t)row * p.n_tab + a0 + a];
     }
-    for (int i = tid; i < nzp * CA; i += blockDim.x) {
+    for (int i = tid; i < nzl * CA; i += blockDim.x) {
       const int row = i / CA, a = i - row * CA;
-      sZ[row * CA + a] = gZ[(size_t)row * p.n_tab + a0 + a];
+      sZ[row * CA + a] = gZ[(size_t)(z0 * kTileZ + row) * p.n_tab + a0 + a];
     }
     __syncthreads();
 #pragma unroll 2
@@ -248,6 +256,7 @@ structure_tile_kernel(TileParams p) {
     }
   }
   // the range's partial block, [nz][ny % 4][slot]
+  if (zg >= p.nzg) return;
   float2* dst = p.part + (size_t)blockIdx.y * nzp * kTileY * p.stot + s;
 #pragma unroll
   for (int z = 0; z < kTileZ; ++z)
@@ -504,7 +513,7 @@ int ewald_force_splits(int kmx, int kmy, int kmz, int n_pad) {
 
 // B4: S_re, S_im (kp,) of pos (n_pad, 3), q (n_pad,) over the half-space
 // list of kmax = (kmx, kmy, kmz) in box (3,), K = k_real modes padded to kp.
-// The tiling (sb .. nxp) and inv come from ops/ewald_fused.py:
+// The tiling (sb .. nxp, nzb) and inv come from ops/ewald_fused.py:
 // structure_tiling and _dense_to_list_t; tab is n_tab * (2 nxp + 14 nzg +
 // 8 nyg) floats of scratch (n_tab = n_pad rounded up to 32) and part (ranges,
 // nzg * 7 * 4 * blocks_x * sb) float2 scratch.  Returns cudaGetLastError().
@@ -513,10 +522,11 @@ int ewald_structure_launch(const float* pos, const float* q, const float* box,
                            float* s_re, float* s_im, int kmx, int kmy,
                            int kmz, int n_pad, int kp, int k_real, int sb,
                            int nyg, int nzg, int blocks_x, int ranges,
-                           int atoms_per, int nxr, int nxp, void* stream) {
+                           int atoms_per, int nxr, int nxp, int nzb,
+                           void* stream) {
   const int n_tab = (n_pad + kStageAtoms - 1) / kStageAtoms * kStageAtoms;
   if (n_pad <= 0 || kp <= 0 || kmx < 0 || kmy < 0 || kmz < 0 || sb < 32 ||
-      sb % 32 != 0 || sb * nzg > kMaxTileThreads ||
+      sb % 32 != 0 || nzb < 1 || nzb > nzg || sb * nzb > kMaxTileThreads ||
       nyg * kTileY < 2 * kmy + 1 || nzg * kTileZ < kmz + 1 ||
       blocks_x * sb < (2 * kmx + 1) * nyg || ranges < 1 ||
       atoms_per % kStageAtoms != 0 || (long long)ranges * atoms_per < n_tab ||
@@ -525,7 +535,7 @@ int ewald_structure_launch(const float* pos, const float* q, const float* box,
     return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)2 * nyg * (kStageAtoms + 1) * sizeof(float4) +
                       (size_t)nxr * (kStageAtoms + 2) * sizeof(float2) +
-                      (size_t)nzg * kTileZ * kStageAtoms * sizeof(float2);
+                      (size_t)nzb * kTileZ * kStageAtoms * sizeof(float2);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   static size_t raised = 48 * 1024;  // the most a block may ask so far
   if (smem > raised) {
@@ -549,6 +559,7 @@ int ewald_structure_launch(const float* pos, const float* q, const float* box,
   p.sb = sb;
   p.nyg = nyg;
   p.nzg = nzg;
+  p.nzb = nzb;
   p.stot = blocks_x * sb;
   p.atoms_per = atoms_per;
   p.nxr = nxr;
@@ -559,7 +570,8 @@ int ewald_structure_launch(const float* pos, const float* q, const float* box,
                        256, 0, st>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  structure_tile_kernel<<<dim3(blocks_x, ranges), sb * nzg, smem, st>>>(p);
+  structure_tile_kernel<<<dim3(blocks_x, ranges, (nzg + nzb - 1) / nzb),
+                          sb * nzb, smem, st>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int dense = nzg * kTileZ * kTileY * p.stot;

@@ -89,7 +89,7 @@
 //     FP32 arithmetic on r^2 that no MMA shape expresses.
 //
 // Rounding: positions wrap with rintf (round half to even, as jnp.round);
-// 1/sqrt is rsqrtf (about 2 ulp from jax.lax.rsqrt), nvcc contracts
+// 1/sqrt is rsqrtf (about 2 ulp from the JAX lax.rsqrt), nvcc contracts
 // multiply-adds into FMAs, and a column pre-wrapped next to the row chunk
 // differs in its last bit from a per-pair minimum image, so the kernel
 // agrees with its plain torch version to float32 rounding, not bitwise.

@@ -5,8 +5,9 @@ Composes the direct-space pair sweep with the residual exclusion
 adjustment; the exact-k Ewald reciprocal and the Tang-Toennies damping,
 with forces by ``torch.autograd.grad``; the bonded, Drude, Thole and 1-4
 exception terms with analytic forces (``mol_terms`` and ``term_forces``);
-the Ewald self and LJ long-range corrections; and virtual-site force
-redistribution.
+the Ewald self and LJ long-range corrections; external energy closures
+(``ops/external.py``: autograd forces, or their own ``analytic_force``);
+and virtual-site force redistribution.
 
 Pair sweeps (``pair_mode``): "plist", the tile-pair list of kernel B1 (the
 default); "band", the z-banded upper-triangle sweep of kernel B2, selected
@@ -14,11 +15,21 @@ by ``fold_exc14=True`` as in the JAX package, with regular 1-4 exceptions
 folded into the kernel; "dense", the all-pairs torch sweep.
 ``strict_pairs=True`` takes kernel B2's exhaustive sweep on a step whose
 coverage check trips.  Reciprocal: ``recip="exact"`` (one matrix product,
-autograd) or ``"exact_fused"`` (kernels B4/B5).  On a CPU tensor every
-kernel wrapper takes its plain torch version.
+autograd) or ``"exact_fused"`` (kernels B4/B5).  ``image_mirror`` (from
+``Context``'s detection of the constant-voltage layout) takes the matmul
+route over the real atoms only (``ewald.reciprocal_energy(mirror=)``); the
+fused route runs all atoms, images included, as in the JAX package.  On a
+CPU tensor every kernel wrapper takes its plain torch version.
+
+Energy queries (no pair cache given) build their own list, which keeps the
+tile pairs of force-inert atoms (image charges) that the step's list culls;
+its capacity ``plist_cap_all`` is sized without that cull.  With
+``full_list=True`` that list has every tile pair's capacity and no nowrap
+frame, a list that cannot be flagged: ``Context._energy_query`` repeats a
+query whose list came back flagged that way.
 
 Not ported yet, and refused with NotImplementedError: the mesh, PME,
-NBTHOLE, CMAP, GB and external forces.
+NBTHOLE, CMAP and GB.
 """
 from __future__ import annotations
 
@@ -105,10 +116,8 @@ class ForceEvaluator:
                  pair_kernel: str = "auto", box_hint=None, pos_hint=None,
                  pair_ts: int = 0, fold_exc14: bool = False,
                  recip: str = "exact", mesh=None,
-                 strict_pairs: bool = False, device="cuda"):
-        if external_forces:
-            raise NotImplementedError(
-                "external forces are not ported yet (ROADMAP A11)")
+                 strict_pairs: bool = False, image_mirror=None,
+                 device="cuda"):
         if mesh is not None:
             raise NotImplementedError(
                 "the multi-device mesh is not ported yet (ROADMAP A16)")
@@ -134,6 +143,10 @@ class ForceEvaluator:
                 "fold_exc14=True")
         self.system = system
         self.device = resolve_device(device)
+        self.external_forces = list(external_forces)
+        # (img0, par0, count, mirror_z) of a contiguous trailing image block
+        # mirroring the block just before it (Context checks the layout)
+        self.image_mirror = image_mirror
         self.ewald_chunk = ewald_chunk
         self.row_block = row_block
         self.pair_kernel = pair_kernel
@@ -242,16 +255,13 @@ class ForceEvaluator:
         # pair-list capacity: exact initial count x drift margin; and the
         # first-atom-frame ("nowrap") axes of the plist kernel, re-verified
         # per step by the coverage check
-        self.plist_cap = 0
+        self.plist_cap = self.plist_cap_all = 0
         self.plist_nowrap = (False, False, False)
         if self.pair_mode == "plist":
             n_tiles = -(-system.n_atoms // self.pair_ts)
-            self.plist_cap = n_tiles * (n_tiles + 1) // 2
+            self.plist_cap = self.plist_cap_all = n_tiles * (n_tiles + 1) // 2
             if have_hint:
-                cnt = pair_plist.count_candidates_np(
-                    pos_hint, box_hint, self.pair_ts, rc_cand,
-                    mode=self.plist_sort, inert=self._inert_mask)
-                self.plist_cap = min(self.plist_cap, int(cnt * 1.6) + 64)
+                self._size_lists(pos_hint, box_hint)
                 self.plist_nowrap = pair_plist.nowrap_axes_np(
                     pos_hint, box_hint, self.pair_ts, rc_cand,
                     mode=self.plist_sort)
@@ -355,6 +365,26 @@ class ForceEvaluator:
             self.system.r_cutoff, mode=key, inert=self._inert_mask)
         return evals + PLIST_SLOT_COST * entries * ts * ts, entries
 
+    def _size_lists(self, pos, box, grow_only=False, cnt=None):
+        """Capacities of the step's list (inert tile pairs culled) and of
+        the energy queries' list (none culled): the candidates on ``pos``
+        x 1.6 + 64, at most the full triangle.  ``cnt`` is the culled
+        count when the caller has it."""
+        rc_cand = self.system.r_cutoff + self.skin
+        n_tiles = -(-self.system.n_atoms // self.pair_ts)
+        full = n_tiles * (n_tiles + 1) // 2
+
+        def count(inert):
+            return pair_plist.count_candidates_np(
+                pos, box, self.pair_ts, rc_cand, mode=self.plist_sort,
+                inert=inert)
+        if cnt is None:
+            cnt = count(self._inert_mask)
+        cnt_all = cnt if self._inert_mask is None else count(None)
+        for attr, c in (("plist_cap", cnt), ("plist_cap_all", cnt_all)):
+            if not grow_only or c > getattr(self, attr):
+                setattr(self, attr, min(full, int(c * 1.6) + 64))
+
     def refit_pair_list(self, pos_raw, box) -> str:
         """Re-size the pair list from the current configuration after a
         rebuild came back flagged: re-choose the sort key (a lattice start
@@ -362,31 +392,32 @@ class ForceEvaluator:
         has melted) and the nowrap axes (their frame budget no longer holds
         either), and grow the capacity if the candidates outgrew it.  The
         tile size stays: the padded per-atom tables are built for it.  The
-        JAX package keeps all of these fixed from construction and runs the
-        flagged list anyway (ROADMAP C).  Returns a note of what changed."""
+        energy queries' list grows with it.  The JAX package keeps all of
+        these fixed from construction and runs the flagged list anyway
+        (ROADMAP C).  Returns a note of what changed."""
         pos = np.asarray(self.place_vsites(pos_raw).detach().cpu(),
                          np.float64)
         box = np.asarray(box.detach().cpu(), np.float64)
         rc_cand = self.system.r_cutoff + self.skin
-        old = (self.plist_sort, self.plist_nowrap, self.plist_cap)
+        old = (self.plist_sort, self.plist_nowrap, self.plist_cap,
+               self.plist_cap_all)
         costs = {key: self._plist_cost(pos, box, self.pair_ts, key)
                  for key in ("z", "morton")}
         self.plist_sort = min(costs, key=lambda key: costs[key][0])
-        cnt = costs[self.plist_sort][1]
         self.plist_nowrap = pair_plist.nowrap_axes_np(
             pos, box, self.pair_ts, rc_cand, mode=self.plist_sort)
-        n_tiles = -(-self.system.n_atoms // self.pair_ts)
-        if cnt > self.plist_cap:
-            self.plist_cap = min(n_tiles * (n_tiles + 1) // 2,
-                                 int(cnt * 1.6) + 64)
+        self._size_lists(pos, box, grow_only=True,
+                         cnt=costs[self.plist_sort][1])
         return (f"sort {old[0]} -> {self.plist_sort}, nowrap {old[1]} -> "
                 f"{self.plist_nowrap}, plist_cap {old[2]} -> "
-                f"{self.plist_cap}")
+                f"{self.plist_cap}, energy list {old[3]} -> "
+                f"{self.plist_cap_all}")
 
     # -- gradient terms ----------------------------------------------------
     def _smooth_energy(self, pos, box):
-        """The terms whose force comes from autograd: the Ewald reciprocal
-        and the TT damping."""
+        """The terms whose force comes from autograd: the Ewald reciprocal,
+        the TT damping and the external closures without an
+        ``analytic_force``."""
         s, t = self.system, self.t
         terms = {}
         if s.ewald_beta > 0 and self.recip_method == "exact_fused":
@@ -397,34 +428,47 @@ class ForceEvaluator:
         elif s.ewald_beta > 0:
             terms["coul_recip"] = ewald.reciprocal_energy(
                 pos, box, t.charges, s.ewald_beta, s.kmax,
-                chunk=self.ewald_chunk)
+                chunk=self.ewald_chunk, mirror=self.image_mirror)
         if s.tt_donors.shape[0] > 0:
             terms["tt_damping"] = nonbonded.tt_damping_energy(
                 pos, box, t.tt_donors, t.tt_charges, t.tt_dipole_mask,
                 t.exclusions, float(s.tt_b), float(s.tt_cutoff))
+        for i, f in enumerate(self.external_forces):
+            if getattr(f, "analytic_force", None) is None:
+                terms[f"external_{i}"] = f(pos, box)
         return terms
 
     # -- full evaluation --------------------------------------------------
     @torch.no_grad()
     def energy_forces(self, pos_raw, box, want_energy: bool = True,
-                      pair_cache=None, return_cov: bool = False):
+                      pair_cache=None, return_cov: bool = False,
+                      full_list: bool = False):
         """Returns (terms dict, forces on real dofs), plus the pair
         coverage flag when ``return_cov``: a device bool, or a Python bool
         when ``strict_pairs`` has read it on the host already.  With
         ``want_energy=False`` the pair kernel takes its force-only
-        specialization and the constraint-null springs are skipped."""
+        specialization and the constraint-null springs are skipped.
+        Without ``pair_cache`` the plist sweep builds a list that culls
+        nothing, and its flag says whether that list overflowed or its
+        nowrap frame failed (then its energies miss pairs); with
+        ``full_list`` that list holds every tile pair's place and takes the
+        wrapped frame, so it is never flagged."""
         s, t = self.system, self.t
         pos = self.place_vsites(pos_raw)
         cov = torch.zeros((), dtype=torch.bool, device=pos.device)
         if self.pair_mode == "plist":
+            cap, nowrap = self.plist_cap_all, self.plist_nowrap
+            if full_list and pair_cache is None:
+                n_tiles = -(-s.n_atoms // self.pair_ts)
+                cap, nowrap = n_tiles * (n_tiles + 1) // 2, (False,) * 3
             e_lj, e_coul_dir, e_corr, e14c, e14l, f_direct, cov = \
                 pair_plist.direct_space_plist(
                     pos, box, t.charges, self.pair_tables, s.ewald_beta,
                     s.r_cutoff, self.pair_ts, want_energy=want_energy,
-                    cache=pair_cache, plist_cap=self.plist_cap,
-                    skin=self.skin, plist_sort=self.plist_sort,
-                    r_switch=s.r_switch, strict=self.strict_pairs,
-                    nowrap=self.plist_nowrap, statics=self.statics)
+                    cache=pair_cache, plist_cap=cap, skin=self.skin,
+                    plist_sort=self.plist_sort, r_switch=s.r_switch,
+                    strict=self.strict_pairs, nowrap=nowrap,
+                    statics=self.statics)
         elif self.pair_mode == "band":
             e_lj, e_coul_dir, e_corr, e14c, e14l, f_direct, cov = \
                 pair_tri.direct_space_band(
@@ -477,6 +521,12 @@ class ForceEvaluator:
                 box, s.disp_coef_a2, s.disp_coef_b, s.r_cutoff,
                 r_switch=s.r_switch)
         forces = f_direct + f_terms - grad_smooth
+        # externals with their own forces (masked elementwise over all N)
+        for i, f in enumerate(self.external_forces):
+            af = getattr(f, "analytic_force", None)
+            if af is not None:
+                terms[f"external_{i}"] = f(pos, box)
+                forces = forces + af(pos, box)
         forces = vsites.redistribute_forces(
             pos_raw, forces, t.vsite_index, t.vsite_parents,
             t.vsite_origin_w, t.vsite_x_w, t.vsite_y_w, t.vsite_local)

@@ -63,12 +63,23 @@ def reciprocal_energy(pos, box, charges, beta, kmax, chunk: int = 0,
     ``chunk_min_bytes`` accumulates the contraction over atom chunks, each
     under ``torch.utils.checkpoint`` so the (chunk, 2AB) phase block is
     recomputed in the backward pass instead of being kept (the JAX
-    version's ``jax.checkpoint`` inside ``lax.scan``).
+    version's ``jax.checkpoint`` inside ``lax.scan``); with ``mirror`` each
+    of the two atom subsets is chunked on its own.
+
+    ``mirror`` = (img0, par0, count, mirror_z) declares the constant-voltage
+    image layout: atoms [img0, img0 + count) are the trailing block and
+    mirror the parents [par0, par0 + count) that end where it begins, with
+    q_img = -q_parent, x/y copied and z -> 2 mirror_z - z.  The image
+    block's (2AB, 2C) contraction is then the parents' one rotated per kz
+    column (cos(kz z') = c2m cz + s2m sz, sin(kz z') = s2m cz - c2m sz with
+    c2m = cos(2 kz zm), s2m = sin(2 kz zm)) and negated, so the atom pass
+    covers the real atoms only.  That block is taken from the parents'
+    contraction detached: image positions are variables the integrator
+    syncs, and a parent's force is the partial derivative at fixed images,
+    as in the explicit 2N evaluation.  The image rows of the gradient are
+    exactly 0.  Any other layout raises ValueError: the JAX version would
+    drop the atoms between the parents and the images.
     """
-    if mirror is not None:
-        raise NotImplementedError(
-            "the image-mirror reciprocal (constant-voltage EDL) is not "
-            "ported yet (ROADMAP A11)")
     dev = pos.device
     f32 = dict(dtype=torch.float32, device=dev)
     ax = torch.arange(-kmax[0], kmax[0] + 1, **f32)
@@ -106,15 +117,35 @@ def reciprocal_energy(pos, box, charges, beta, kmax, chunk: int = 0,
         Y = torch.cat([cz, sz], dim=1)                         # (m,2C)
         return torch.matmul(X.t(), Y)                          # (2AB,2C)
 
-    m = pos.shape[0]
-    x_bytes = m * 2 * A * B * 4
-    if chunk and m > 2 * chunk and x_bytes > chunk_min_bytes:
-        M = torch.zeros((2 * A * B, 2 * C), **f32)
-        for s in range(0, m, chunk):
-            M = M + checkpoint(contraction, pos[s:s + chunk],
-                               charges[s:s + chunk], use_reentrant=False)
+    def accumulate(p, q):
+        """The (2AB, 2C) block of one atom subset, chunked when large."""
+        m = p.shape[0]
+        x_bytes = m * 2 * A * B * 4
+        if chunk and m > 2 * chunk and x_bytes > chunk_min_bytes:
+            M = torch.zeros((2 * A * B, 2 * C), **f32)
+            for s in range(0, m, chunk):
+                M = M + checkpoint(contraction, p[s:s + chunk],
+                                   q[s:s + chunk], use_reentrant=False)
+            return M
+        return contraction(p, q)
+
+    n = pos.shape[0]
+    if mirror is not None:
+        img0, par0, cnt, zm = mirror
+        if par0 + cnt != img0 or img0 + cnt != n:
+            raise ValueError(
+                f"mirror {mirror}: the images must be the trailing block "
+                f"and their parents the block just before it ({n} atoms)")
+        m_liq = accumulate(pos[par0:img0], charges[par0:img0])
+        M = accumulate(pos[:par0], charges[:par0]) + m_liq
+        ml = m_liq.detach()
+        c2m = torch.cos(2.0 * kz * zm)                        # (C,)
+        s2m = torch.sin(2.0 * kz * zm)
+        mc, ms = ml[:, :C], ml[:, C:]
+        M = M - torch.cat([mc * c2m[None, :] + ms * s2m[None, :],
+                           mc * s2m[None, :] - ms * c2m[None, :]], dim=1)
     else:
-        M = contraction(pos, charges)
+        M = accumulate(pos, charges)
     rc_, rs_ = M[:A * B, :C], M[:A * B, C:]
     ic_, is_ = M[A * B:, :C], M[A * B:, C:]
     S_re = (rc_ - is_).reshape(A, B, C)

@@ -249,29 +249,34 @@ def structure_tiling(kmax, n_pad: int, sms: int) -> dict:
     """How kernel B4 cuts its work, from the shapes and the card's SM count
     alone (so the summation order is fixed for a run).  A thread owns a
     4 x 7 tile of (ny, nz) modes of one nx; ``sb`` such tiles along the
-    flattened (nx, ny group) axis ("slots") and all ``nzg`` nz groups make
-    a block, ``blocks_x`` blocks cover the slots, and the atoms are cut into
+    flattened (nx, ny group) axis ("slots") and ``nzb`` nz groups make a
+    block: all ``nzg`` of them where sb x nzg threads fit (kmax[2] up to 69),
+    else as many as fit, ``nz_blocks`` blocks along grid.z covering them.
+    ``blocks_x`` blocks cover the slots, and the atoms are cut into
     ``ranges`` ranges of ``atoms_per`` (two blocks an SM in flight)."""
     kmx, kmy, kmz = (int(k) for k in kmax)
     nyg = -(-(2 * kmy + 1) // _B4_TY)
     nzg = -(-(kmz + 1) // _B4_TZ)
     n_slots = (2 * kmx + 1) * nyg
-    if 32 * nzg > _B4_THREADS:
-        raise ValueError(f"structure_factor: kmax[2]={kmz} is beyond the "
-                         f"kernel's {_B4_THREADS // 32} nz groups of {_B4_TZ}")
     # the fewest padded slots, then the widest block
-    sb = min((s for s in (128, 96, 64, 32) if s * nzg <= _B4_THREADS),
+    fit = 32 * nzg <= _B4_THREADS
+    sb = min((s for s in (128, 96, 64, 32)
+              if not fit or s * nzg <= _B4_THREADS),
              key=lambda s: (-(-n_slots // s) * s, -s))
+    nzb = nzg if fit else _B4_THREADS // sb
+    nz_blocks = -(-nzg // nzb)
     blocks_x = -(-n_slots // sb)
     n_tab = -(-n_pad // _B4_ATOMS) * _B4_ATOMS
-    ranges = max(1, min(n_tab // _B4_ATOMS, (2 * sms) // blocks_x))
+    ranges = max(1, min(n_tab // _B4_ATOMS,
+                        (2 * sms) // (blocks_x * nz_blocks)))
     atoms_per = -(-n_tab // (ranges * _B4_ATOMS)) * _B4_ATOMS
     ranges = -(-n_tab // atoms_per)
     nxr = (sb - 1) // nyg + 2
     nxp = ((blocks_x - 1) * sb) // nyg + nxr
-    return dict(sb=sb, nyg=nyg, nzg=nzg, blocks_x=blocks_x,
-                stot=blocks_x * sb, nxr=nxr, nxp=nxp, ranges=ranges,
-                atoms_per=atoms_per, threads=sb * nzg, n_tab=n_tab,
+    return dict(sb=sb, nyg=nyg, nzg=nzg, nzb=nzb, nz_blocks=nz_blocks,
+                blocks_x=blocks_x, stot=blocks_x * sb, nxr=nxr, nxp=nxp,
+                ranges=ranges, atoms_per=atoms_per, threads=sb * nzb,
+                n_tab=n_tab,
                 tab_floats=n_tab * (2 * nxp + 2 * _B4_TZ * nzg
                                     + 2 * _B4_TY * nyg),
                 dense=nzg * _B4_TZ * _B4_TY * blocks_x * sb)
@@ -300,7 +305,7 @@ def _launcher():
     lib = kernels.load("ewald_fused")
     if lib.ewald_structure_launch.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.ewald_structure_launch.argtypes = [P] * 8 + [I] * 14 + [P]
+        lib.ewald_structure_launch.argtypes = [P] * 8 + [I] * 15 + [P]
         lib.ewald_force_launch.argtypes = [P, P, P, P, P, I, I, I, I, I, P,
                                            P, P]
         lib.ewald_structure_launch.restype = I
@@ -379,7 +384,8 @@ def structure_factor(posp, qp, kvec, kmax, box):
         part.data_ptr(), inv.data_ptr(), s_re.data_ptr(), s_im.data_ptr(),
         kmax[0], kmax[1], kmax[2], n_pad, kp, k_tiling(kmax)[0], t["sb"],
         t["nyg"], t["nzg"], t["blocks_x"], t["ranges"], t["atoms_per"],
-        t["nxr"], t["nxp"], torch.cuda.current_stream(dev).cuda_stream),
+        t["nxr"], t["nxp"], t["nzb"],
+        torch.cuda.current_stream(dev).cuda_stream),
         "structure_factor")
     structure_factor.launches += 1
     return s_re, s_im

@@ -229,5 +229,8 @@ def test_factorised_structure_factor_pad_modes():
     assert inv.shape == (t["dense"],)
     assert np.array_equal(np.sort(inv[inv >= 0]), np.arange(k_real))
     assert int((inv == -2).sum()) == 1
-    with pytest.raises(ValueError, match="nz groups"):
-        tef.structure_tiling((2, 2, 200), 64, 132)
+    # a tall cell's kmax[2] beyond one block's nz groups: grid.z cuts them
+    t = tef.structure_tiling((2, 2, 200), 64, 132)
+    assert t["threads"] <= 320 and t["threads"] % 32 == 0
+    assert t["nzb"] < t["nzg"] <= t["nzb"] * t["nz_blocks"]
+    assert t["nzg"] * 7 >= 201

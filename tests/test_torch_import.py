@@ -135,16 +135,21 @@ def test_unported_features_raise():
     b.set_lj_from_type_params([0.3], [0.1])
     img_box = np.array([2.0, 2.0, 2.0])
     img_sys = b.finalize(img_box, r_cutoff=0.8)
+    # image pairs, external forces and the barostat are ported (A11, A12)
     integ = tpkg.VVIntegrator()
+    integ.setMirrorLocation(1.0)
     integ.addImagePair(1, 0)
-    with pytest.raises(NotImplementedError, match="A11"):
-        tpkg.Context(img_sys, integ, positions=[[0.5, 0.5, 0.5],
-                                                [0.5, 0.5, 1.5]],
-                     box=img_box, device="cpu")
+    ctx = tpkg.Context(img_sys, integ, positions=[[0.5, 0.5, 0.5],
+                                                  [0.5, 0.5, 1.5]],
+                       box=img_box, device="cpu",
+                       external_forces=[lambda p, b: 0.0 * p.sum()],
+                       barostat=tpkg.BarostatConfig("iso", 1.0, 300.0, 1))
+    assert ctx.image_mirror == (1, 0, 1, 1.0)
+    ctx.step(1)
+    assert "external_0" in ctx.potential_energy_terms()
+    assert ctx.baro_attempts == 1
     integ = tpkg.VVIntegrator()
-    for kw in (dict(recip="pme"), dict(barostat=object()),
-               dict(mesh=object()),
-               dict(external_forces=[lambda p, b: 0.0])):
+    for kw in (dict(recip="pme"), dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tpkg.Context(ps, integ, positions=pos, box=box, device="cpu",
                          **kw)

@@ -1,11 +1,13 @@
 """The hand-written kernels against their plain torch versions on the card:
 B1 (csrc/plist_pair.cu) for the tile sizes from one warp (32) to 384, both
-specializations, the nowrap and wrapped frames and the LJ rows in shared
-memory or read through __ldg; B2 (csrc/tri_pair.cu) in every tile-pair
+specializations, the nowrap and wrapped frames, the LJ rows in shared
+memory or read through __ldg, and on a constant-voltage image slab (group
+rows, image-image tile pairs culled); B2 (csrc/tri_pair.cu) in every tile-pair
 enumeration x specialization x 1-4 folding x interaction groups on the
 layout the evaluator builds, at tile sizes 32 to 768, and in its row-sharded
 form; B4/B5
-(csrc/ewald_fused.cu) forward, backward and through autograd; B3
+(csrc/ewald_fused.cu) forward, backward and through autograd, B4 also
+with its nz groups cut over grid.z (a tall cell's kmax[2] of 97); B3
 (csrc/rect_pair.cu) at two tile shapes with and without interaction groups;
 B6-B8 (csrc/gather.cu) bitwise against their plain versions and against
 torch.index_select.  A CUDA
@@ -140,6 +142,77 @@ def test_plist_kernel_many_lj_types(cuda, ts, groups):
     args, kw, blocks = _setup(cuda, ts, groups, False, n_types=40)
     for want_energy in (False, True):
         _plist_against_plain(cuda, args, kw, blocks, want_energy)
+
+
+def _image_slab_setup(dev, ts):
+    """A constant-voltage slab: two electrode layers (group 2), three-atom
+    molecules of mutually excluded atoms above them (group 0) and a
+    trailing block of their massless images mirrored across z = 4 with the
+    negated charges and the molecules' exclusions (group 1), LJ groups
+    [(0,0),(0,2),(2,2),(1,0)] (run-edl's), and the step's list with the
+    image-image tile pairs culled."""
+    rng = np.random.default_rng(13)
+    box = np.array([3.0, 3.0, 8.0], np.float32)
+    g = (np.stack(np.meshgrid(np.arange(10), np.arange(10), indexing="ij"),
+                  -1).reshape(-1, 2) + 0.5) * 0.3
+    elec = np.concatenate([np.c_[g, np.full(100, z)] for z in (0.1, 0.3)])
+    n_mol = 320
+    centers = (np.stack(np.meshgrid(np.arange(8), np.arange(8), np.arange(5),
+                                    indexing="ij"), -1).reshape(-1, 3) + 0.5
+               ) * [0.375, 0.375, 0.6] + [0, 0, 0.6]
+    liq = np.repeat(centers, 3, 0) + rng.normal(0, 0.05, (3 * n_mol, 3))
+    img = liq * [1, 1, -1] + [0, 0, 8.0]
+    pos = np.concatenate([elec, liq, img]).astype(np.float32)
+    n_el, n_liq = len(elec), len(liq)
+    n = len(pos)
+    q = np.concatenate([np.zeros(n_el), rng.normal(0, 0.5, n_liq)])
+    q = np.concatenate([q, -q[n_el:]])
+    lj_type = np.concatenate([np.zeros(n_el, int),
+                              rng.integers(1, 3, n_liq),
+                              np.full(n_liq, 3)])
+    sig = np.array([0.3, 0.32, 0.25, 0.1])
+    eps = np.array([0.6, 0.5, 0.3, 0.0])
+    a = np.sqrt(np.outer(eps, eps)) ** 0.5 * np.outer(sig, sig) ** 3 * 2.0
+    b = 2.0 * np.sqrt(np.outer(eps, eps)) * np.outer(sig, sig) ** 3 * 2.0
+    excl = np.full((n, 2), -1, np.int64)
+    for base in (n_el, n_el + n_liq):
+        for m in range(n_mol):
+            i0 = base + 3 * m
+            excl[i0] = (i0 + 1, i0 + 2)
+            excl[i0 + 1, 0] = i0 + 2
+    groups = np.concatenate([np.full(n_el, 2), np.zeros(n_liq, int),
+                             np.ones(n_liq, int)])
+    allowed = np.zeros((3, 3), bool)
+    for gi, gj in [(0, 0), (0, 2), (2, 2), (1, 0)]:
+        allowed[gi, gj] = allowed[gj, gi] = True
+    tables = allpairs.build_pair_tables(n, lj_type, a, b, excl, groups,
+                                        allowed, fold_exc14=False)
+    inert = np.arange(n) >= n_el + n_liq
+    cnt = pair_plist.count_candidates_np(pos, box, ts, RC + 0.1,
+                                         mode="morton", inert=inert)
+    posd = torch.as_tensor(pos, device=dev)
+    boxd = torch.as_tensor(box, device=dev)
+    cache = pair_plist.make_pair_cache(
+        posd, boxd, q, tables, ts, mode="morton", cap=int(cnt * 1.6) + 16,
+        rc_cand=RC + 0.1, inert=inert)
+    assert cache.tile_inert.any() and not bool(cache.overflow)
+    pad = cache.perm.shape[0] - n
+    pos2d = torch.cat([posd, torch.full((pad, 3), 1e6, device=dev)]
+                      )[cache.perm].contiguous()
+    args = (cache.plist, cache.row_ptr, cache.col_ptr, cache.col_idx, pos2d,
+            cache.q, cache.ab2, cache.ljt, cache.grp, cache.bits, cache.oid,
+            boxd)
+    assert cache.ab2.shape[0] == 3 * cache.perm.shape[0]   # group rows
+    kw = dict(ts=ts, t_dim=tables["arows"].shape[1], beta=BETA, r_cutoff=RC)
+    return args, kw, (cache.blk_tile, cache.blk_e0, cache.blk_ptr)
+
+
+@pytest.mark.parametrize("want_energy", [False, True])
+def test_plist_kernel_image_slab(cuda, want_energy):
+    """B1 in its group-rows form (ab2 stacked 3 deep) on a list whose
+    image-image tile pairs are culled, against its plain version."""
+    args, kw, blocks = _image_slab_setup(cuda, 32)
+    _plist_against_plain(cuda, args, kw, blocks, want_energy)
 
 
 def test_plist_kernel_rejects_bad_input(cuda):
@@ -356,8 +429,11 @@ def _recip_system(dev, n, seed):
                                        (130, (0, 2, 1), 32),
                                        (130, (5, 0, 0), 32),
                                        (530, (2, 3, 30), 32),
-                                       (61, (12, 11, 13), 8)])
+                                       (61, (12, 11, 13), 8),
+                                       (300, (11, 19, 97), 32)])
 def test_fused_kernels_match_plain(cuda, n, kmax, ts):
+    """B4 and B5 against their plain versions; the last case has the
+    kmax of chip_smoke's EDL cell, whose 14 nz groups B4 cuts over grid.z."""
     pos, box, q = _recip_system(cuda, n, 21)
     posp, qp, kvec, w, c0, _, kp, _ = ewald_fused._prep(pos, box, q, 2.8,
                                                         kmax, ts)
