@@ -59,20 +59,35 @@ Phases:
      acceptances and the volume; then a gate leg in which every accepted
      move leaves finite terms, no coverage trip on its step and the box
      scaled by the move's axis_scale;
-  8. for each path every energy term and the kinetic energy finite, a
+  8. path 8, the PME reciprocal (recip="pme", grid (96, 96, 96) for the
+     9.35 nm box) at 19,500 atoms: PME against the matmul route (forces
+     within 1.5e-3 max|F| on the path's start, whose energy difference is
+     printed; energy within 1e-4 and forces as above on random charges at
+     the path's atom count and box, tests/test_pme.py's data), step(20),
+     step(200) timed, B1 launched >= 200 times; then the route times of
+     ops/pme.py's cost model on random charges in 3-12 nm boxes and the fit
+     of its costs (the PME route is also timed beside the fused and matmul
+     routes at 19,500 atoms and at path 6's EDL shapes);
+  9. for each path every energy term and the kinetic energy finite, a
      torch.profiler summary of 20 more steps (device busy time, kernels per
      step, top kernels), and a 64-molecule system stepped 10 times on the
      card tracking the same run on the CPU (plain versions; path 4 without
      its Langevin subset and path 6 without its Langevin electrode, whose
      noise streams differ between the two; path 7 with the same barostat
      draws handed to both, the same accept / reject sequence);
-  9. one JSON line {"kernels": [...]}, the card line, and as the last line
+ 10. A13/A15 on the card against the CPU: a written Drude PSF/PRM/GRO
+     fixture carrying NBTHOLE and CMAP through the port's loaders,
+     replicated to 4,374 atoms and stepped 10 times on both; GB (OBC2,
+     salt, ACE) on the 1,944-atom fixture through createSystem, energy and
+     forces on both;
+ 11. one JSON line {"kernels": [...]}, the card line, and as the last line
      {"ok": true, "device": {...}}.
 
 Exits nonzero on any failure, without a CUDA device, or without the
 package beside it.
 """
 import functools
+import itertools
 import json
 import statistics
 import subprocess
@@ -128,6 +143,16 @@ IMAGE_SYNC_ATOL = 1e-5
 COUL_PER_ATOM = 1e3
 # kcal/mol/A^2 in kJ/mol/nm^2 (run-edl's restraint unit)
 KCAL_A2 = 4.184 / 0.01
+# path 8: PME against the matmul route, energy rtol (tests/test_pme.py:37)
+# and forces atol relative to max|F| (:69)
+PME_E_RTOL, PME_F_ATOL_REL = 1e-4, 1.5e-3
+# the grid choose_grid gives the 9.35 nm box, and the cubic boxes (nm) of
+# the route times that fit ops/pme.py's cost model
+PME_GRID = (96, 96, 96)
+RECIP_FIT_SIDES = (3.0, 4.5, 6.0, 7.5, 9.35, 12.0)
+# GB card against CPU: energy rtol (tests/test_gb.py:111-114) and autograd
+# forces atol relative to max|F|
+GB_RTOL, GB_F_ATOL_REL = 2e-5, 1e-4
 
 
 def card_line():
@@ -633,6 +658,7 @@ def recip_phase(ctx, label=""):
     (with the context's image mirror, if any).  ``label`` tags the lines."""
     import torch
     from openmm_velocityverlet_tpu_torch.ops import ewald, ewald_fused as ef
+    from openmm_velocityverlet_tpu_torch.ops import pme
     s = ctx.system
     pos = ctx.state.pos
     box = ctx.state.box
@@ -743,13 +769,20 @@ def recip_phase(ctx, label=""):
     t["matmul_route"] = cuda_time_ms(route(lambda p: ewald.reciprocal_energy(
         p, box, q, s.ewald_beta, s.kmax, chunk=ctx.evaluator.ewald_chunk,
         mirror=ctx.image_mirror)), reps=10)
+    grid = pme.choose_grid(box.cpu().numpy())
+    pme_route = route(lambda p: pme.reciprocal_energy_pme(
+        p, box, q, s.ewald_beta, grid))
+    t["pme_route"] = cuda_time_ms(pme_route, reps=10)
+    t["pme_route_device"] = device_ms(pme_route, calls=10)
     print(f"[kernel] B4/B5{label}: bitwise equal over 3 runs; B4 "
           f"{t['b4']:.4f} ms ({t['b4_device']:.4f} ms device time; plain "
           f"{t['b4_plain']:.4f}), B5 {t['b5']:.4f} ms "
           f"({t['b5_device']:.4f} ms device time; plain "
           f"{t['b5_plain']:.4f}); energy + autograd forces: fused route "
           f"{t['fused_route']:.4f} ms, matmul route (ops/ewald.py) "
-          f"{t['matmul_route']:.4f} ms")
+          f"{t['matmul_route']:.4f} ms, PME route (ops/pme.py, grid "
+          f"{grid}, all atoms) {t['pme_route']:.4f} ms "
+          f"({t['pme_route_device']:.4f} ms device time)")
     phases = pos.shape[0] * k_real
     t["b4_bound"] = bound(phases * B4_OPS, nbytes(posp, qp, kvec, *s_k))
     t["b5_bound"] = bound(phases * B5_OPS, nbytes(posp, qp, kvec, ab, f_k))
@@ -1200,7 +1233,8 @@ def small_agreement(tag, wire=None, make=None, prepare=None, **opts):
     ``wire(integ, n_mol)`` sets integrator features; ``make()`` returns
     (system, positions, box, wire, Context options) in place of the
     drude_water box; ``prepare(ctx)`` runs after construction and returns
-    a record both runs must share (the barostat's accept sequence)."""
+    a record both runs must share (the barostat's accept sequence).
+    Returns the card run's energy terms."""
     import numpy as np
     from openmm_velocityverlet_tpu_torch import Context, VVIntegrator
     from openmm_velocityverlet_tpu_torch.models.drude_water import \
@@ -1229,13 +1263,15 @@ def small_agreement(tag, wire=None, make=None, prepare=None, **opts):
     dpos = float(np.abs(out[DEVICE][0] - out["cpu"][0]).max())
     worst = max(abs(out[DEVICE][1][k] - v) / (abs(v) + 1.0)
                 for k, v in out["cpu"][1].items())
-    print(f"[check] {tag}: 64-molecule 10-step card vs CPU: max |dpos| = "
+    print(f"[check] {tag}: {system.n_atoms}-atom 10-step card vs CPU: "
+          f"max |dpos| = "
           f"{dpos:.3e} nm, max term diff/(|E|+1) = {worst:.3e}"
           + (f"; record card {out[DEVICE][2]} CPU {out['cpu'][2]}"
              if prepare is not None else ""))
     if not (dpos < 1e-4 and worst < 1e-3
             and out[DEVICE][2] == out["cpu"][2]):
         raise AssertionError(f"{tag}: card run disagrees with the CPU run")
+    return out[DEVICE][1]
 
 
 def edl_system(n_water=4200, n_pairs=700, elec_grid=(16, 26),
@@ -1590,6 +1626,317 @@ def npt_draws(ctx):
     return log
 
 
+def pme_routes(pos, box, q, beta, kmax, grid, chunk):
+    """(E_pme, E_exact, max |F_pme - F_exact|, max |F_exact|): the PME
+    route and the matmul route (energy and autograd forces) on the same
+    atoms."""
+    import torch
+    from openmm_velocityverlet_tpu_torch.ops import ewald, pme
+    out = []
+    for fn in (lambda p: pme.reciprocal_energy_pme(p, box, q, beta, grid),
+               lambda p: ewald.reciprocal_energy(p, box, q, beta, kmax,
+                                                 chunk=chunk)):
+        p = pos.detach().clone().requires_grad_(True)
+        with torch.enable_grad():
+            e = fn(p)
+            (g,) = torch.autograd.grad(e, p)
+        out.append((float(e.detach()), g))
+    (e_p, g_p), (e_x, g_x) = out
+    return e_p, e_x, float((g_p - g_x).abs().max()), float(g_x.abs().max())
+
+
+def pme_gates(ctx):
+    """Path 8's gates of PME against the matmul route (tests/test_pme.py:
+    37, 69): forces within PME_F_ATOL_REL max|F| on the path's start
+    configuration, whose energy difference is printed beside; energy
+    within PME_E_RTOL and forces as above on tests/test_pme.py's
+    _random_system data (uniform positions, normal charges of zero sum) at
+    the path's atom count and box."""
+    import numpy as np
+    import torch
+    s, st, ev = ctx.system, ctx.state, ctx.evaluator
+    args = (s.ewald_beta, s.kmax, ev.pme_grid, ev.ewald_chunk)
+    e_p, e_x, df, fmax = pme_routes(st.pos, st.box, ev.t.charges, *args)
+    print(f"[pme] start configuration: PME {e_p:.6f} against the matmul "
+          f"route {e_x:.6f} kJ/mol (relative {abs(e_p - e_x) / abs(e_x):.3e}"
+          f"); forces max |dF| {df:.3e} (atol {PME_F_ATOL_REL} x max|F| "
+          f"{fmax:.3f})")
+    ok = df <= PME_F_ATOL_REL * fmax
+    rng = np.random.default_rng(0)
+    n = s.n_atoms
+    box = st.box
+    pos = torch.as_tensor(rng.uniform(0, 1, (n, 3)) * box.cpu().numpy(),
+                          dtype=torch.float32, device=box.device)
+    q = rng.normal(0, 1, n)
+    q = torch.as_tensor(q - q.mean(), dtype=torch.float32, device=box.device)
+    r_p, r_x, r_df, r_fmax = pme_routes(pos, box, q, *args)
+    print(f"[pme] random charges at {n} atoms in the same box: PME "
+          f"{r_p:.3f} against {r_x:.3f} kJ/mol (relative "
+          f"{abs(r_p - r_x) / abs(r_x):.3e}, rtol {PME_E_RTOL}); forces "
+          f"max |dF| {r_df:.3e} (atol {PME_F_ATOL_REL} x max|F| "
+          f"{r_fmax:.3f})")
+    ok = ok and abs(r_p - r_x) <= PME_E_RTOL * abs(r_x) \
+        and r_df <= PME_F_ATOL_REL * r_fmax
+    if not ok:
+        raise AssertionError("PME disagrees with the exact sum")
+
+
+def recip_fit():
+    """The route times of ops/pme.py's cost model: the matmul route and the
+    PME route (energy and autograd forces, CUDA events) on random charges
+    in cubic boxes of RECIP_FIT_SIDES nm at 24 atoms/nm^3 (the drude_water
+    density) with the Ewald parameters of a 1.2 nm cutoff; each route's
+    three costs (fixed, and per unit of its model's two terms) fitted by
+    non-negative least squares.  Returns the fitted costs and the
+    points."""
+    import numpy as np
+    import torch
+    from openmm_velocityverlet_tpu_torch.ops import ewald, pme
+    rng = np.random.default_rng(3)
+    pts = []
+    for side in RECIP_FIT_SIDES:
+        box_np = np.full(3, side)
+        n = int(24 * side ** 3)
+        beta, kmax = ewald.ewald_parameters(1.2, box=box_np)
+        grid = pme.choose_grid(box_np)
+        box = torch.as_tensor(box_np, dtype=torch.float32, device=DEVICE)
+        pos = torch.as_tensor(rng.uniform(0, side, (n, 3)),
+                              dtype=torch.float32, device=DEVICE)
+        q = torch.as_tensor(rng.normal(0, 1, n), dtype=torch.float32,
+                            device=DEVICE)
+
+        def route(fn):
+            def run():
+                p = pos.detach().requires_grad_(True)
+                torch.autograd.grad(fn(p), p)
+            return run
+        t_x = cuda_time_ms(route(lambda p: ewald.reciprocal_energy(
+            p, box, q, beta, kmax, chunk=4096)), reps=5)
+        t_p = cuda_time_ms(route(lambda p: pme.reciprocal_energy_pme(
+            p, box, q, beta, grid)), reps=10)
+        pts.append(dict(side=side, n=n, kmax=kmax, grid=grid,
+                        matmul_ms=t_x, pme_ms=t_p))
+    a_x = np.array([pme._exact_terms(p["n"], p["kmax"]) for p in pts])
+    a_p = np.array([pme._pme_terms(p["n"], p["grid"]) for p in pts])
+
+    def nnls(a, t):
+        # non-negative least squares over the three columns: the best of
+        # the unconstrained fits on each subset whose terms are all >= 0
+        best = None
+        for r in (1, 2, 3):
+            for cols in itertools.combinations(range(3), r):
+                c = np.linalg.lstsq(a[:, cols], t, rcond=None)[0]
+                if (c < 0).any():
+                    continue
+                full = np.zeros(3)
+                full[list(cols)] = c
+                res = float(np.sum((a @ full - t) ** 2))
+                if best is None or res < best[0]:
+                    best = (res, full)
+        return best[1]
+    c_x = nnls(a_x, np.array([p["matmul_ms"] * 1e3 for p in pts]))
+    c_p = nnls(a_p, np.array([p["pme_ms"] * 1e3 for p in pts]))
+    rates = dict(zip(("EXACT_FIXED_US", "EXACT_US_PER_BYTE",
+                      "EXACT_US_PER_FLOP", "PME_FIXED_US", "PME_US_PER_ROW",
+                      "PME_US_PER_BUTTERFLY"),
+                     [float(c) for c in (*c_x, *c_p)]))
+    for p in pts:
+        print(f"[recip fit] {p['side']:.2f} nm box, {p['n']} atoms, kmax "
+              f"{p['kmax']}, grid {p['grid']}: matmul route "
+              f"{p['matmul_ms']:.4f} ms, PME route {p['pme_ms']:.4f} ms "
+              f"(the cost model as committed: "
+              f"{pme.exact_sum_cost(p['n'], p['kmax']) / 1e3:.4f} / "
+              f"{pme.pme_cost(p['n'], p['grid']) / 1e3:.4f} ms)")
+    print("[recip fit] fitted: " + ", ".join(
+        f"{k} {v:.4g} (committed {getattr(pme, k):.4g})"
+        for k, v in rates.items()))
+    return dict(rates=rates, points=pts)
+
+
+def write_charmm_fixture(directory, n_side=3, spacing=0.8, seed=0):
+    """A Drude PSF/PRM pair and a .gro of its start that carry NBTHOLE and
+    CMAP, in the manner of tests/test_nbthole.py:79-127 and
+    tests/test_cmap.py:98-117: n_side^3 cells of ``spacing`` nm, each with
+    a Drude cation (TA, +1 e) and a Drude anion (TB, -1 e) of NBTHOLE
+    coefficient 2.6 between the two types, 0.35 nm apart, and a neutral
+    five-atom chain (CA-CB-CC-CD-CE) with one CMAP cross-term on a 24 x 24
+    map of 0.8 cos(phi) + 0.5 sin(2 psi) kcal/mol.  Returns the paths
+    (psf, prm, gro)."""
+    import math
+    import os
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    atoms, pos, bonds, cmaps = [], [], [], []
+    # (name, type, charge, mass, alpha, thole, offset from the cell centre)
+    unit = [("N1", "TA", 1.8, 14.007, -1.0, 0.9, (-0.2, -0.2, -0.15)),
+            ("DP1", "DP_", -0.8, 0.4, 0.0, 0.0, (-0.18, -0.2, -0.15)),
+            ("C1", "TB", 0.2, 12.011, -1.5, 0.9, (0.15, -0.2, -0.15)),
+            ("DP2", "DP_", -1.2, 0.4, 0.0, 0.0, (0.15, -0.18, -0.15))]
+    chain = [(f"C{k + 2}", t, q, 12.011, 0.0, 0.0,
+              (-0.25 + 0.125 * k, 0.1 + (0.044 if k % 2 else -0.044),
+               0.15 + z))
+             for k, (t, q, z) in enumerate(zip(
+                 ("CA", "CB", "CC", "CD", "CE"),
+                 (0.1, -0.1, 0.0, 0.1, -0.1),
+                 (0.0, 0.03, -0.03, 0.04, 0.0)))]
+    resnames = ("IMA", "IMA", "IMB", "IMB") + ("PEN",) * 5
+    cell = 0
+    for ix in range(n_side):
+        for iy in range(n_side):
+            for iz in range(n_side):
+                c = (np.array([ix, iy, iz]) + 0.5) * spacing
+                first = len(atoms)
+                for k, a in enumerate(unit + chain):
+                    atoms.append(a[:6] + (resnames[k], 3 * cell + 1
+                                          + (k >= 2) + (k >= 4)))
+                    pos.append(c + np.array(a[6])
+                               + rng.normal(0, 0.005, 3))
+                i = first + 1
+                bonds += [(i, i + 1), (i + 2, i + 3)]
+                bonds += [(i + 4 + k, i + 5 + k) for k in range(4)]
+                cmaps.append((i + 4, i + 5, i + 6, i + 7,
+                              i + 5, i + 6, i + 7, i + 8))
+                cell += 1
+    lines = ["PSF DRUDE", "", "       1 !NTITLE",
+             " REMARKS NBTHOLE and CMAP fixture", "",
+             f"{len(atoms):8d} !NATOM"]
+    for k, (name, typ, q, m, alpha, thole, res, rid) in enumerate(atoms):
+        lines.append(f"{k + 1:8d} S    {rid:<6d}{res:<6s}{name:<6s}"
+                     f"{typ:<6s}{q:10.6f}{m:12.4f}  0 {alpha:9.4f}"
+                     f"{thole:9.4f}")
+    lines += ["", f"{len(bonds):8d} !NBOND: bonds"]
+    flat = [x for b in bonds for x in b]
+    lines += ["".join(f"{x:8d}" for x in flat[j:j + 8])
+              for j in range(0, len(flat), 8)]
+    for tag in ("NTHETA: angles", "NPHI: dihedrals", "NIMPHI: impropers"):
+        lines += ["", f"       0 !{tag}"]
+    lines += ["", f"{len(cmaps):8d} !NCRTERM: cross-terms"]
+    lines += ["".join(f"{x:8d}" for x in c) for c in cmaps]
+    psf = os.path.join(directory, "fixture.psf")
+    with open(psf, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    r = 24
+    ang = -math.pi + 2 * math.pi * np.arange(r) / r
+    grid = 0.8 * np.cos(ang)[:, None] + 0.5 * np.sin(2 * ang)[None, :]
+    prm_lines = ["* NBTHOLE and CMAP fixture", "*", "", "ATOMS"]
+    for k, (t, m) in enumerate((("TA", 14.007), ("TB", 12.011),
+                                ("DP_", 0.0), ("CA", 12.011), ("CB", 12.011),
+                                ("CC", 12.011), ("CD", 12.011),
+                                ("CE", 12.011))):
+        prm_lines.append(f"MASS {k + 1:5d} {t:6s} {m:9.4f}")
+    prm_lines += ["", "BONDS", "TA DP_ 500.0 0.0", "TB DP_ 500.0 0.0",
+                  "CA CB 300.0 1.53", "CB CC 300.0 1.53",
+                  "CC CD 300.0 1.53", "CD CE 300.0 1.53", "",
+                  "NONBONDED", "TA 0.0 -0.10 1.6", "TB 0.0 -0.12 1.7",
+                  "DP_ 0.0 -0.00 0.0"]
+    prm_lines += [f"{t} 0.0 -0.08 1.9 0.0 -0.04 1.8"
+                  for t in ("CA", "CB", "CC", "CD", "CE")]
+    prm_lines += ["", "NBTHOLE", "TA TB 2.6", "", "CMAP",
+                  f"CA CB CC CD CB CC CD CE {r}"]
+    prm_lines += [" ".join(f"{v:.5f}" for v in row) for row in grid]
+    prm_lines += ["", "END"]
+    prm = os.path.join(directory, "fixture.prm")
+    with open(prm, "w") as fh:
+        fh.write("\n".join(prm_lines) + "\n")
+    box = n_side * spacing
+    gro_lines = ["NBTHOLE and CMAP fixture", f"{len(atoms)}"]
+    for k, (a, p) in enumerate(zip(atoms, pos)):
+        gro_lines.append(f"{a[7] % 100000:5d}{a[6]:<5s}{a[0]:>5s}"
+                         f"{(k + 1) % 100000:5d}{p[0]:8.3f}{p[1]:8.3f}"
+                         f"{p[2]:8.3f}")
+    gro_lines.append(f"{box:10.5f}{box:10.5f}{box:10.5f}")
+    gro = os.path.join(directory, "fixture.gro")
+    with open(gro, "w") as fh:
+        fh.write("\n".join(gro_lines) + "\n")
+    return psf, prm, gro
+
+
+def load_fixture(directory, n_side, **create):
+    """The fixture through the port's loaders: (BuiltSystem, positions,
+    box)."""
+    from openmm_velocityverlet_tpu_torch.models.grofile import GroFile
+    from openmm_velocityverlet_tpu_torch.models.prmfile import \
+        CharmmParameterSet
+    from openmm_velocityverlet_tpu_torch.models.psffile import OplsPsfFile
+    psf_p, prm_p, gro_p = write_charmm_fixture(directory, n_side)
+    gro = GroFile(gro_p)
+    psf = OplsPsfFile(psf_p, periodicBoxVectors=gro.getPeriodicBoxVectors())
+    built = psf.createSystem(CharmmParameterSet(prm_p), **create)
+    return built, gro.positions, gro.box
+
+
+def charmm_phase():
+    """A13 (b)-(d) and A15 on the card against the CPU: the fixture of
+    ``write_charmm_fixture`` (27 cells, 243 atoms) through the port's
+    GroFile / OplsPsfFile / CharmmParameterSet, replicated (3, 3, 2) to
+    4,374 atoms and stepped 10 times on both; then GB (OBC2, 0.15 M salt,
+    ACE) on the 6^3-cell fixture (1,944 atoms) through createSystem:
+    its energy and autograd forces on both, and the whole evaluation's
+    terms."""
+    import tempfile
+    import numpy as np
+    import torch
+    from openmm_velocityverlet_tpu_torch import ForceEvaluator
+    from openmm_velocityverlet_tpu_torch.models.replicate import replicate
+    from openmm_velocityverlet_tpu_torch.ops import gb
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        built, pos, box = load_fixture(d, 3, nonbondedCutoff=1.2,
+                                       constraints=None, rigidWater=False)
+        s = built.system
+        big, bpos, bbox = replicate(s, pos, box, (3, 3, 2))
+        print(f"[charmm] fixture {s.n_atoms} atoms ({s.drude_pairs.shape[0]}"
+              f" Drude pairs, {int(np.max(s.nbt_idx))} NBTHOLE types, "
+              f"{s.cmap_atoms.shape[0]} CMAP terms on "
+              f"{s.cmap_coeffs.shape[0]} map), replicated to "
+              f"{big.n_atoms} atoms in {bbox.tolist()} nm, kmax "
+              f"{big.kmax}; {time.perf_counter() - t0:.1f} s")
+        terms = small_agreement(
+            f"A13/A15 ({big.n_atoms}-atom replicated CHARMM fixture, "
+            f"NBTHOLE + CMAP)", make=lambda: (big, bpos, bbox, None, {}))
+        if not (terms.get("nbthole", 0.0) != 0.0
+                and terms.get("cmap", 0.0) != 0.0):
+            raise AssertionError("the fixture's NBTHOLE or CMAP term is 0")
+        gbuilt, gpos, gbox = load_fixture(
+            d, 6, nonbondedCutoff=1.2, constraints=None, rigidWater=False,
+            use_pme=False, implicitSolvent="OBC2",
+            implicitSolventSaltConc=0.15, gbsaModel="ACE")
+    gsys = gbuilt.system
+    out = {}
+    for dev in ("cpu", DEVICE):
+        ev = ForceEvaluator(gsys, box_hint=gbox, pos_hint=gpos, device=dev)
+        p = torch.as_tensor(np.asarray(gpos, np.float32), device=dev)
+        b = torch.as_tensor(np.asarray(gbox, np.float32), device=dev)
+        terms, f = ev.energy_forces(p, b)
+
+        def gb_call(p=p, ev=ev):
+            x = p.detach().requires_grad_(True)
+            with torch.enable_grad():
+                e = gb.gb_energy(x, ev.t.charges, ev.gb)
+                (g,) = torch.autograd.grad(e, x)
+            return e.detach(), g
+        e_gb, g_gb = gb_call()
+        out[dev] = ({k: float(v) for k, v in terms.items()},
+                    f.cpu().numpy(), float(e_gb), g_gb.cpu().numpy())
+        if dev == DEVICE:
+            ms = cuda_time_ms(gb_call, reps=5)
+    (t_c, f_c, e_c, g_c), (t_g, f_g, e_g, g_g) = out["cpu"], out[DEVICE]
+    gb_err = float(np.abs(g_g - g_c).max())
+    gmax = float(np.abs(g_c).max())
+    worst = max(abs(t_g[k] - v) / (abs(v) + 1.0) for k, v in t_c.items())
+    f_err = float(np.abs(f_g - f_c).max())
+    print(f"[charmm] GB OBC2 + salt + ACE on {gsys.n_atoms} atoms: energy "
+          f"card {e_g:.4f} CPU {e_c:.4f} (rtol {GB_RTOL}); autograd forces "
+          f"max |dF| {gb_err:.3e} (atol {GB_F_ATOL_REL} x max|F| {gmax:.3f})"
+          f"; energy + forces {ms:.3f} ms on the card; whole evaluation: "
+          f"terms max diff/(|E|+1) {worst:.3e}, forces max |dF| "
+          f"{f_err:.3e}")
+    if not (abs(e_g - e_c) <= GB_RTOL * abs(e_c)
+            and gb_err <= GB_F_ATOL_REL * gmax and worst < 1e-3
+            and f_err <= F_ATOL + F_RTOL * float(np.abs(f_c).max())):
+        raise AssertionError("GB on the card disagrees with the CPU")
+
+
 def main():
     import numpy as np
     import torch
@@ -1736,6 +2083,27 @@ def main():
     check_finite("npt", ctx7, system)
     profile("path 7", ctx7, el7 / 200 * 1e3, top=6)
     npt_gate(ctx7)
+    del ctx7
+    torch.cuda.empty_cache()
+
+    # path 8: the PME reciprocal
+    ctx8, _ = context(recip="pme")
+    ev8 = ctx8.evaluator
+    print(f"[pme] recip {ev8.recip_method}, grid {ev8.pme_grid} for the "
+          f"{box[0]:.3f} nm box; pair_mode {ev8.pair_mode}, tile size "
+          f"{ev8.pair_ts}")
+    if ev8.recip_method != "pme" or ev8.pme_grid != PME_GRID:
+        raise AssertionError(f"path 8: grid {ev8.pme_grid}, expected "
+                             f"{PME_GRID}")
+    pme_gates(ctx8)
+    _, el8, l8 = drive("pme", ctx8, 200, {"B1": pp.plist_pair}, card, dt)
+    if l8["B1"] < 200:
+        raise AssertionError(f"path 8: B1 launched {l8['B1']} < 200 times")
+    check_finite("pme", ctx8, system)
+    profile("path 8", ctx8, el8 / 200 * 1e3, top=8)
+    del ctx8
+    torch.cuda.empty_cache()
+    fit = recip_fit()
 
     small_agreement("path 1")
     small_agreement("path 2 (fold_exc14, pair_ts 32)", fold_exc14=True,
@@ -1751,6 +2119,8 @@ def main():
     small_agreement("path 7 (barostat every 2 steps, same draws)",
                     prepare=npt_draws,
                     barostat=BarostatConfig("iso", 1.0, 333.0, frequency=2))
+    small_agreement("path 8 (pme)", recip="pme")
+    charmm_phase()
 
     f, e = b1["force"], b1["energy"]
 
@@ -1773,6 +2143,7 @@ def main():
          "energy_device_ms": e[3], "tile_size": ctx1.evaluator.pair_ts,
          "evaluations": b1_evals, "cutoff_pairs": b1_pairs,
          "launches_edl": edl["launches"], "launches_npt": l7["B1"],
+         "launches_pme": l8["B1"],
          "edl_device_ms": edl["b1"]["force"][3],
          "edl_max_abs_err": max(edl["b1"]["force"][0],
                                 edl["b1"]["energy"][0]),
@@ -1795,7 +2166,13 @@ def main():
          "plain_ms": rc["b4_plain"], "bound_ms": rc["b4_bound"][0],
          "bound_by": rc["b4_bound"][1], "library_ms": None,
          "device_ms": rc["b4_device"], "matmul_route_ms": rc["matmul_route"],
-         "fused_route_ms": rc["fused_route"],
+         "fused_route_ms": rc["fused_route"], "pme_route_ms": rc["pme_route"],
+         "pme_route_device_ms": rc["pme_route_device"],
+         "edl_matmul_route_ms": edl["recip"]["matmul_route"],
+         "edl_fused_route_ms": edl["recip"]["fused_route"],
+         "edl_pme_route_ms": edl["recip"]["pme_route"],
+         "edl_pme_route_device_ms": edl["recip"]["pme_route_device"],
+         "recip_fit": fit["rates"],
          "launches_edl_fused": edl["fused"]["B4"],
          **edl_recip("b4")},
         {"name": "ewald_force", "route": "cuda",

@@ -5,8 +5,10 @@ Module names and layout follow the JAX package, which stays the reference.
 The port carries the middle and vanilla VV schemes with the TGNH and
 partitioned Langevin thermostats, the E-field and cosine acceleration,
 image-charge constant voltage with the external-force toolbox
-(``ops/external.py``, ``models/helper.py``, ``edl_analysis.py``) and the
-Monte Carlo barostat.
+(``ops/external.py``, ``models/helper.py``, ``edl_analysis.py``), the
+Monte Carlo barostat, FFT PME, NBTHOLE, CMAP and GB implicit solvent, and
+the CHARMM loaders (``models/prmfile.py``, ``psffile.py``, ``grofile.py``,
+``replicate.py``).
 Its hand-written CUDA kernels for Hopper are B1, the plist pair sweep
 (``csrc/plist_pair.cu``), B2, the upper-triangle band / full sweep
 (``csrc/tri_pair.cu``), B3, the rectangular sweep (``csrc/rect_pair.cu``),

@@ -2,8 +2,9 @@
 ``openmm_velocityverlet_tpu/forces.py``).
 
 Composes the direct-space pair sweep with the residual exclusion
-adjustment; the exact-k Ewald reciprocal and the Tang-Toennies damping,
-with forces by ``torch.autograd.grad``; the bonded, Drude, Thole and 1-4
+adjustment; the reciprocal (exact-k Ewald or PME), CMAP, NBTHOLE, implicit
+solvent (GB) and the Tang-Toennies damping, with forces by
+``torch.autograd.grad``; the bonded, Drude, Thole and 1-4
 exception terms with analytic forces (``mol_terms`` and ``term_forces``);
 the Ewald self and LJ long-range corrections; external energy closures
 (``ops/external.py``: autograd forces, or their own ``analytic_force``);
@@ -15,11 +16,15 @@ by ``fold_exc14=True`` as in the JAX package, with regular 1-4 exceptions
 folded into the kernel; "dense", the all-pairs torch sweep.
 ``strict_pairs=True`` takes kernel B2's exhaustive sweep on a step whose
 coverage check trips.  Reciprocal: ``recip="exact"`` (one matrix product,
-autograd) or ``"exact_fused"`` (kernels B4/B5).  ``image_mirror`` (from
-``Context``'s detection of the constant-voltage layout) takes the matmul
-route over the real atoms only (``ewald.reciprocal_energy(mirror=)``); the
-fused route runs all atoms, images included, as in the JAX package.  On a
-CPU tensor every kernel wrapper takes its plain torch version.
+autograd; the port's default), ``"exact_fused"`` (kernels B4/B5), ``"pme"``
+(``ops/pme.py``, torch scatter and FFT, autograd; its grid is chosen from
+``box_hint`` at construction and stays while a barostat scales the box) or
+``"auto"`` (``pme.choose_reciprocal``'s cost model of the routes on the
+card).  ``image_mirror`` (from ``Context``'s detection of the
+constant-voltage layout) takes the matmul route over the real atoms only
+(``ewald.reciprocal_energy(mirror=)``); the fused and PME routes run all
+atoms, images included, as in the JAX package.  On a CPU tensor every
+kernel wrapper takes its plain torch version.
 
 Energy queries (no pair cache given) build their own list, which keeps the
 tile pairs of force-inert atoms (image charges) that the step's list culls;
@@ -28,8 +33,7 @@ its capacity ``plist_cap_all`` is sized without that cull.  With
 frame, a list that cannot be flagged: ``Context._energy_query`` repeats a
 query whose list came back flagged that way.
 
-Not ported yet, and refused with NotImplementedError: the mesh, PME,
-NBTHOLE, CMAP and GB.
+Not ported yet, and refused with NotImplementedError: the mesh (A16).
 """
 from __future__ import annotations
 
@@ -38,8 +42,8 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from .ops import (allpairs, ewald, ewald_fused, mol_terms, nonbonded,
-                  pair_plist, pair_tri, term_forces, vsites)
+from .ops import (allpairs, cmap, ewald, ewald_fused, gb, mol_terms,
+                  nonbonded, pair_plist, pair_tri, pme, term_forces, vsites)
 from .system import System, resolve_device
 
 
@@ -121,19 +125,10 @@ class ForceEvaluator:
         if mesh is not None:
             raise NotImplementedError(
                 "the multi-device mesh is not ported yet (ROADMAP A16)")
-        if recip not in ("exact", "exact_fused"):
-            raise NotImplementedError(
-                f"recip={recip!r}: the port has the exact-k reciprocal "
-                "('exact') and its fused kernels ('exact_fused'); PME is "
-                "ROADMAP A13")
-        if int(np.asarray(system.nbt_idx).max(initial=0)) > 0:
-            raise NotImplementedError("NBTHOLE is not ported yet "
-                                      "(ROADMAP A13)")
-        if system.cmap_atoms.shape[0] > 0:
-            raise NotImplementedError("CMAP is not ported yet (ROADMAP A13)")
-        if system.gb is not None:
-            raise NotImplementedError(
-                "implicit solvent (GB) is not ported yet (ROADMAP A13)")
+        if recip not in ("exact", "exact_fused", "pme", "auto"):
+            raise ValueError(
+                f"recip={recip!r}: the reciprocal routes are 'exact', "
+                "'exact_fused', 'pme' and 'auto'")
         if pair_kernel == "auto":
             pair_kernel = "plist"
         if pair_kernel not in ("plist", "dense"):
@@ -155,10 +150,28 @@ class ForceEvaluator:
         self.pair_mode = ("dense" if pair_kernel == "dense"
                           else "band" if fold_exc14 else "plist")
         self.strict_pairs = bool(strict_pairs)
+        # the JAX choice of reciprocal (forces.py:289-310): "auto" by the
+        # cost model, PME on a grid fixed from box_hint
+        self.pme_grid = None
+        if recip == "auto":
+            recip = "exact"
+            if box_hint is not None and system.ewald_beta > 0:
+                recip, _ = pme.choose_reciprocal(
+                    system.n_atoms, system.kmax, np.asarray(box_hint))
+        if recip == "pme":
+            if box_hint is None:
+                raise ValueError("recip='pme' requires box_hint")
+            self.pme_grid = pme.choose_grid(np.asarray(box_hint))
         self.recip_method = recip
         self.skin = 0.1
         dev = self.device
         self.t = system.to(dev)
+        # the NBTHOLE sweep's tables and the GB parameters, on the device
+        # once (the JAX package rebuilds the former at every trace)
+        self.nbthole = nonbonded.nbthole_tables(
+            system.nbt_idx, system.nbt_alpha, system.nbt_coef,
+            system.charges, system.exclusions, dev)
+        self.gb = None if system.gb is None else system.gb.to(dev)
         # force-inert particles (massless, not a virtual site): their
         # forces are discarded, so inert-inert tile pairs leave the force
         # path's pair list
@@ -415,12 +428,16 @@ class ForceEvaluator:
 
     # -- gradient terms ----------------------------------------------------
     def _smooth_energy(self, pos, box):
-        """The terms whose force comes from autograd: the Ewald reciprocal,
-        the TT damping and the external closures without an
+        """The terms whose force comes from autograd: the reciprocal, CMAP,
+        NBTHOLE, GB, the TT damping and the external closures without an
         ``analytic_force``."""
         s, t = self.system, self.t
         terms = {}
-        if s.ewald_beta > 0 and self.recip_method == "exact_fused":
+        if s.ewald_beta > 0 and self.recip_method == "pme":
+            # over all atoms, images included (JAX forces.py:377-380)
+            terms["coul_recip"] = pme.reciprocal_energy_pme(
+                pos, box, t.charges, s.ewald_beta, self.pme_grid)
+        elif s.ewald_beta > 0 and self.recip_method == "exact_fused":
             # kernels B4 (forward) and B5 (backward): nothing of size
             # (N, K) is stored
             terms["coul_recip"] = ewald_fused.reciprocal_energy_fused(
@@ -429,6 +446,18 @@ class ForceEvaluator:
             terms["coul_recip"] = ewald.reciprocal_energy(
                 pos, box, t.charges, s.ewald_beta, s.kmax,
                 chunk=self.ewald_chunk, mirror=self.image_mirror)
+        if s.cmap_atoms.shape[0] > 0:
+            terms["cmap"] = cmap.cmap_energy(
+                pos, box, t.cmap_atoms, t.cmap_map, t.cmap_coeffs,
+                t.cmap_res)
+        if self.nbthole is not None:
+            # the reference truncates NBTHOLE at a hard-coded 0.5 nm
+            # (oplspsffile.py:1407), not at the system cutoff
+            terms["nbthole"] = nonbonded.nbthole_energy(
+                pos, box, self.nbthole, min(0.5, s.r_cutoff))
+        if self.gb is not None:
+            # all pairs, no bonded exclusions, no periodic images
+            terms["gb"] = gb.gb_energy(pos, t.charges, self.gb)
         if s.tt_donors.shape[0] > 0:
             terms["tt_damping"] = nonbonded.tt_damping_energy(
                 pos, box, t.tt_donors, t.tt_charges, t.tt_dipole_mask,

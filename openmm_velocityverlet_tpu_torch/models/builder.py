@@ -16,6 +16,7 @@ from typing import Optional
 
 import numpy as np
 
+from ..ops.cmap import pack_cmap_maps
 from ..ops.ewald import ewald_parameters
 from ..system import System
 from ..units import ONE_4PI_EPS0
@@ -333,11 +334,7 @@ class SystemBuilder:
             tt_dipole_mask[d[0]] = True
             tt_dipole_mask[d[1]] = True
 
-        if self.cmap_grids:
-            raise NotImplementedError(
-                "CMAP cross-terms are not ported yet (ROADMAP A13)")
-        cmap_coeffs = np.zeros((0, 1, 1, 4, 4), np.float32)
-        cmap_res = np.zeros((0,), np.int32)
+        cmap_coeffs, cmap_res = pack_cmap_maps(self.cmap_grids)
 
         return System(
             masses=farr(masses), inv_masses=farr(inv_masses),

@@ -8,8 +8,9 @@ device, with the compensated two-float position pair (``pos``/``pos_err``)
 and the Nose-Hoover chain arrays.  Randomness is a ``torch.Generator``.
 
 ``system_from_numpy``/``state_from_numpy`` read any object with the same
-field names through ``np.asarray``, so a JAX ``System``/``State`` carries
-across without this package importing jax.
+field names through ``np.asarray`` (a GB block through
+``GBData.from_numpy``), so a JAX ``System``/``State`` carries across
+without this package importing jax.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .ops.gb import GBData
 from .units import BOLTZ
 
 # fields that are plain Python configuration, not tables
@@ -103,8 +105,8 @@ class System:
     cmap_map: np.ndarray
     cmap_coeffs: np.ndarray
     cmap_res: np.ndarray
-    # ---- implicit solvent (not ported: must stay None) ----
-    gb: Optional[object] = None
+    # ---- implicit solvent (ops/gb.GBData), or None ----
+    gb: Optional[GBData] = None
     # ---- nonbonded method parameters ----
     r_cutoff: float = 1.2
     r_switch: float = 0.0
@@ -153,11 +155,7 @@ def system_from_numpy(obj) -> System:
     for f in dataclasses.fields(System):
         v = getattr(obj, f.name)
         if f.name == "gb":
-            if v is not None:
-                raise NotImplementedError(
-                    "implicit solvent (GB) is not ported yet "
-                    "(ROADMAP A13)")
-            kw[f.name] = None
+            kw[f.name] = None if v is None else GBData.from_numpy(v)
         elif f.name == "kmax":
             kw[f.name] = tuple(int(k) for k in v)
         elif f.name in _STATIC_FIELDS:

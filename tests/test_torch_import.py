@@ -20,9 +20,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_port_imports_without_jax():
-    """Every module of the package, the tools subpackage included, imports
-    with jax absent from sys.modules (checked in a fresh interpreter), and
-    none pulls in triton."""
+    """Every module of the package, the tools subpackage, the A13 force
+    terms (ops/pme.py, ops/cmap.py, ops/gb.py) and the A15 loaders
+    (models/prmfile, psffile, grofile, replicate) included, imports with
+    jax absent from sys.modules (checked in a fresh interpreter), and none
+    pulls in triton."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import openmm_velocityverlet_tpu_torch as p\n"
@@ -34,6 +36,9 @@ def test_port_imports_without_jax():
         "assert not bad, bad\n"
         "assert len(names) >= 15, names\n"
         "assert p.__name__ + '.tools.exp_gather_kernel' in names, names\n"
+        "for m in ('ops.pme', 'ops.cmap', 'ops.gb', 'models.prmfile', "
+        "'models.psffile', 'models.grofile', 'models.replicate'):\n"
+        "    assert p.__name__ + '.' + m in names, m\n"
         "print('ok', len(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -149,10 +154,17 @@ def test_unported_features_raise():
     assert "external_0" in ctx.potential_energy_terms()
     assert ctx.baro_attempts == 1
     integ = tpkg.VVIntegrator()
-    for kw in (dict(recip="pme"), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpkg.Context(ps, integ, positions=pos, box=box, device="cpu",
-                         **kw)
+    # the mesh (A16) is what the port still refuses
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tpkg.Context(ps, integ, positions=pos, box=box, device="cpu",
+                     mesh=object())
+    # PME and "auto" (A13) construct and step
+    for recip in ("pme", "auto"):
+        ctx = tpkg.Context(ps, tpkg.VVIntegrator(), positions=pos, box=box,
+                           device="cpu", recip=recip)
+        assert ctx.evaluator.recip_method in ("pme", "exact")
+        ctx.step(1)
+        assert np.isfinite(ctx.get_positions()).all(), recip
     # "band" names no pair kernel: the z-band sweep is fold_exc14=True
     with pytest.raises(ValueError, match="fold_exc14"):
         tpkg.Context(ps, integ, positions=pos, box=box, device="cpu",
@@ -166,8 +178,18 @@ def test_unported_features_raise():
         assert ctx.evaluator.pair_mode == mode
         assert ctx.evaluator.strict_pairs == kw.get("strict_pairs", False)
         assert ctx.evaluator.recip_method == kw.get("recip", "exact")
+    # CMAP (A13) builds, and its term is in the evaluation
     b = tpkg.SystemBuilder()
-    b.add_particle(1.0)
-    b.add_cmap_map(np.zeros((24, 24)))
-    with pytest.raises(NotImplementedError, match="CMAP"):
-        b.finalize(np.array([2.0, 2.0, 2.0]))
+    for _ in range(5):
+        b.add_particle(12.0)
+    b.set_lj_from_type_params([0.3], [0.1])
+    b.add_cmap_term((0, 1, 2, 3, 1, 2, 3, 4),
+                    b.add_cmap_map(np.ones((24, 24))))
+    cmap_box = np.array([2.0, 2.0, 2.0])
+    cmap_sys = b.finalize(cmap_box)
+    ctx = tpkg.Context(cmap_sys, tpkg.VVIntegrator(), positions=[
+        [0.0, 0.1, 0.0], [0.15, 0.0, 0.0], [0.3, 0.1, 0.05],
+        [0.45, 0.05, -0.05], [0.6, 0.15, 0.02]], box=cmap_box, device="cpu")
+    ctx.step(1)
+    np.testing.assert_allclose(ctx.potential_energy_terms()["cmap"], 1.0,
+                               rtol=1e-5)
