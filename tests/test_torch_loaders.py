@@ -3,7 +3,8 @@ replicate.py) against the JAX package's, on files the tests write: the
 NBTHOLE fixture of tests/test_nbthole.py, the CMAP parameters of
 tests/test_cmap.py, chip_smoke.py's Drude fixture with NBTHOLE and CMAP
 (plain, with implicit solvent), a written .gro, and replicate on
-tests/test_replicate.py's charged fluid."""
+tests/test_replicate.py's charged fluid; and the slice as a whole, that
+fixture loaded and stepped by each package's Context."""
 import dataclasses
 
 import numpy as np
@@ -217,3 +218,60 @@ def test_replicate_charmm_fixture_matches_jax(tmp_path):
     for fn, built in ((treplicate, gb_mine), (jreplicate, gb_ref)):
         with pytest.raises(NotImplementedError):
             fn(built.system, gro.positions, gro.box, (1, 1, 2))
+
+
+@pytest.mark.parametrize("variant", ["pme", "gb"])
+def test_loaded_fixture_context_tracks_jax(tmp_path, variant):
+    """The slice as a whole: chip_smoke's NBTHOLE / CMAP fixture (8 cells,
+    72 atoms) loaded by each package's loaders and stepped 10 times in
+    the middle scheme by each package's Context, on recip="pme" (the port
+    on its dense sweep, as the JAX package is on the CPU) or with GB
+    (OBC2, salt, ACE; no Ewald): positions within 2e-4 nm a step and terms
+    and kinetic energy at tests/test_torch_slice.py's dense-path
+    tolerances."""
+    import jax.numpy as jnp
+
+    import openmm_velocityverlet_tpu as jpkg
+    import openmm_velocityverlet_tpu_torch as tpkg
+    psf_p, prm_p, gro_p = chip_smoke.write_charmm_fixture(str(tmp_path), 2)
+    gro = TGro(gro_p)
+    create = dict(nonbondedCutoff=0.7, constraints=None, rigidWater=False)
+    if variant == "gb":
+        create.update(use_pme=False, implicitSolvent="OBC2",
+                      implicitSolventSaltConc=0.15, gbsaModel="ACE")
+    mine, ref = _load_both(psf_p, prm_p, gro.box, **create)
+    # the JAX Context traces cmap_energy, whose host numpy coefficient
+    # tables cannot be indexed by traced cell indices: hand it device
+    # arrays (the JAX package's own CMAP tests evaluate eagerly)
+    js = ref.system.replace(**{k: jnp.asarray(getattr(ref.system, k))
+                               for k in ("cmap_map", "cmap_coeffs",
+                                         "cmap_res")})
+    rng = np.random.default_rng(8)
+    vel = (rng.normal(0, 0.3, gro.positions.shape)
+           * (np.asarray(ref.system.masses) > 0.5)[:, None])
+    runs = {}
+    for pkg, system in ((jpkg, js), (tpkg, mine.system)):
+        integ = pkg.VVIntegrator(333.0, 10.0, 1.0, 40.0, 0.001)
+        integ.setMaxDrudeDistance(0.02)
+        kw = dict(device="cpu", pair_kernel="dense") if pkg is tpkg else {}
+        ctx = pkg.Context(system, integ, positions=gro.positions,
+                          box=gro.box, recip="pme", **kw)
+        ctx.set_velocities(vel)
+        traj = []
+        for _ in range(10):
+            ctx.step(1)
+            traj.append(np.asarray(ctx.get_positions(), np.float64))
+        runs[pkg] = (np.stack(traj), ctx.potential_energy_terms(),
+                     ctx.kinetic_energy())
+    (tj, ej, kj), (tt, et, kt) = runs[jpkg], runs[tpkg]
+    assert {"nbthole", "cmap"} <= set(et) and ("gb" in et) == (
+        variant == "gb")
+    drift = np.abs(tt - tj).max(axis=(1, 2))
+    print(f"\n[{variant}] max |dpos| per step (nm): "
+          + " ".join(f"{d:.2e}" for d in drift))
+    assert drift.max() < 2e-4
+    assert set(et) == set(ej)
+    for k in ej:
+        np.testing.assert_allclose(et[k], ej[k], rtol=1e-3, atol=0.5,
+                                   err_msg=k)
+    np.testing.assert_allclose(kt, kj, rtol=1e-3)

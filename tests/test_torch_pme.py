@@ -225,3 +225,27 @@ def test_auto_route_constructs_and_steps():
     assert np.isfinite(ctx.get_positions()).all()
     with pytest.raises(ValueError, match="box_hint"):
         tpkg.ForceEvaluator(ps, recip="pme", device="cpu")
+
+
+def test_pme_under_the_barostat_keeps_its_grid():
+    """Under the Monte Carlo barostat the box scales while the PME grid
+    chosen at construction stays, as in the JAX package: after accepted
+    moves the context's coul_recip is reciprocal_energy_pme on the new box
+    with the original grid."""
+    js, pos, box = _lattice(jpkg)
+    ctx = tpkg.Context(system_from_numpy(js), tpkg.VVIntegrator(
+        temperature=120.0, step_size=0.002), positions=pos, box=box,
+        recip="pme", device="cpu",
+        barostat=tpkg.BarostatConfig("iso", 1.0, 120.0, frequency=1))
+    grid = ctx.evaluator.pme_grid
+    ctx.set_velocities_to_temperature(120.0)
+    ctx.step(12)
+    assert ctx.baro_accepts > 0 and ctx.evaluator.pme_grid == grid
+    new_box = ctx.get_box()
+    assert not np.array_equal(new_box, box.astype(np.float32))
+    st = ctx.state
+    e = float(tpme.reciprocal_energy_pme(
+        ctx.evaluator.place_vsites(st.pos), st.box, ctx.evaluator.t.charges,
+        js.ewald_beta, grid))
+    np.testing.assert_allclose(ctx.potential_energy_terms()["coul_recip"],
+                               e, rtol=1e-6)
