@@ -68,19 +68,35 @@ Phases:
      ops/pme.py's cost model on random charges in 3-12 nm boxes and the fit
      of its costs (the PME route is also timed beside the fused and matmul
      routes at 19,500 atoms and at path 6's EDL shapes);
-  9. for each path every energy term and the kinetic energy finite, a
+  9. path 9, the application layer (A14) through the bulk CLI (A17):
+     run_bulk.simulation_from_args with run_bulk's defaults (Langevin on
+     every particle, the iso barostat every 100 steps, 333 K, dt 0.001) on
+     write_charmm_fixture(13, by_species=True), 19,773 atoms with Drudes,
+     NBTHOLE and CMAP in a 10.4 nm box; minimize_energy(100) capped at 50
+     iterations; sim.step(20); then in turns sim.step(200) with the
+     reporters (cut to every 50 / 100 steps, into a temporary directory),
+     bare ctx.step(200) twice and sim.step(200) again; B1 launched >= 200
+     times in the first window; StateData and DrudeTemperature rows finite,
+     the DCD's last frame equal to get_positions() at its step, the GRO
+     frame count, and the step-150 checkpoint resumed by a fresh run_bulk
+     simulation to step 190 within 1e-4 nm (``bulk_path``);
+ 10. for each path every energy term and the kinetic energy finite, a
      torch.profiler summary of 20 more steps (device busy time, kernels per
-     step, top kernels), and a 64-molecule system stepped 10 times on the
+     step, top kernels; on path 9 also 30 steps with the reporters, and
+     the device time of its autograd terms), and a 64-molecule system
+     stepped 10 times on the
      card tracking the same run on the CPU (plain versions; path 4 without
      its Langevin subset and path 6 without its Langevin electrode, whose
      noise streams differ between the two; path 7 with the same barostat
-     draws handed to both, the same accept / reject sequence);
- 10. A13/A15 on the card against the CPU: a written Drude PSF/PRM/GRO
+     draws handed to both, the same accept / reject sequence; path 9 as the
+     243-atom fixture through run_bulk with --thermostat nose-hoover
+     --barostat no);
+ 11. A13/A15 on the card against the CPU: a written Drude PSF/PRM/GRO
      fixture carrying NBTHOLE and CMAP through the port's loaders,
      replicated to 4,374 atoms and stepped 10 times on both; GB (OBC2,
      salt, ACE) on the 1,944-atom fixture through createSystem, energy and
      forces on both;
- 11. one JSON line {"kernels": [...]}, the card line, and as the last line
+ 12. one JSON line {"kernels": [...]}, the card line, and as the last line
      {"ok": true, "device": {...}}.
 
 Exits nonzero on any failure, without a CUDA device, or without the
@@ -153,6 +169,23 @@ RECIP_FIT_SIDES = (3.0, 4.5, 6.0, 7.5, 9.35, 12.0)
 # GB card against CPU: energy rtol (tests/test_gb.py:111-114) and autograd
 # forces atol relative to max|F|
 GB_RTOL, GB_F_ATOL_REL = 2e-5, 1e-4
+# path 9: run_bulk on write_charmm_fixture(n_side=13, by_species=True),
+# 2,197 cells of 9 atoms: 19,773 atoms in a 10.4 nm box, within 1.5% of
+# bench.py's 19,500-atom headline
+BULK_SIDE = 13
+# run_bulk's --min calls minimize_energy(100), up to 500 iterations; path
+# 9 stops it after 50
+BULK_MIN_ITERATIONS = 50
+# path 9's reporter intervals, cut from run_bulk's (checkpoints and DCD
+# every 10000 steps, GRO every 1000 with log spacing, StateData every 1000,
+# DrudeTemperature every 10000) so that a timed 200-step window holds
+# reports: StateData, DCD, DrudeTemperature and checkpoints every 50 steps,
+# GRO every 100 (log spacing, as run_bulk's)
+BULK_EVERY, BULK_GRO_EVERY = 50, 100
+# the checkpoint resume window: from the step-150 checkpoint to step 190,
+# which holds no attempt of run_bulk's barostat (every 100 steps), whose
+# state a checkpoint does not carry
+RESUME_FROM, RESUME_TO = 150, 190
 
 
 def card_line():
@@ -1176,23 +1209,27 @@ def strict_trip(ctx, counters):
                              "after the rebuild")
 
 
-def profile(tag, ctx, step_ms, top=12):
+def profile(tag, ctx, step_ms, top=12, run=None, n=20):
+    """torch.profiler over ``n`` steps, ``ctx.step(n)`` unless ``run`` is
+    given: prints device busy ms/step, kernels/step, the idle share and the
+    top kernels, and returns (busy ms/step, kernels/step), or None where
+    the profiler recorded no device time."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     import torch
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
-        ctx.step(20)
+        (run or ctx.step)(n)
         torch.cuda.synchronize()
     dev_us, kernels_ev = profiled_device_us(prof)
     if dev_us <= 0:
         print(f"[profile {tag}] device busy time not measured: "
-              f"torch.profiler recorded no device time in 20 steps "
+              f"torch.profiler recorded no device time in {n} steps "
               f"(unprofiled {step_ms:.3f} ms/step)")
-        return
+        return None
     n_kernels = sum(e.count for e in kernels_ev)
-    busy_ms = dev_us / 1e3 / 20
+    busy_ms = dev_us / 1e3 / n
     print(f"[profile {tag}] device busy {busy_ms:.3f} ms/step (torch.profiler"
-          f" kernel time of 20 steps), {n_kernels / 20:.0f} kernels/step; "
+          f" kernel time of {n} steps), {n_kernels / n:.0f} kernels/step; "
           f"against the unprofiled {step_ms:.3f} ms/step the device idles "
           f"{100 * (1 - busy_ms / step_ms):.1f}% of the step")
     ranked = sorted(kernels_ev, key=lambda e: -e.self_device_time_total)
@@ -1201,8 +1238,9 @@ def profile(tag, ctx, step_ms, top=12):
     for e in ranked[:top] + [
             e for e in ranked[top:] if e.key.removeprefix("void ").startswith(
                 "(anonymous namespace)::")]:
-        print(f"[profile {tag}] {e.self_device_time_total / 20e3:8.4f} "
-              f"ms/step {e.count / 20:6.1f}/step  {e.key[:90]}")
+        print(f"[profile {tag}] {e.self_device_time_total / n / 1e3:8.4f} "
+              f"ms/step {e.count / n:6.1f}/step  {e.key[:90]}")
+    return busy_ms, n_kernels / n
 
 
 def wire_path4(integ, n_mol, langevin=True):
@@ -1753,15 +1791,19 @@ def recip_fit():
     return dict(rates=rates, points=pts)
 
 
-def write_charmm_fixture(directory, n_side=3, spacing=0.8, seed=0):
+def write_charmm_fixture(directory, n_side=3, spacing=0.8, seed=0,
+                         by_species=False):
     """A Drude PSF/PRM pair and a .gro of its start that carry NBTHOLE and
     CMAP, in the manner of tests/test_nbthole.py:79-127 and
     tests/test_cmap.py:98-117: n_side^3 cells of ``spacing`` nm, each with
     a Drude cation (TA, +1 e) and a Drude anion (TB, -1 e) of NBTHOLE
     coefficient 2.6 between the two types, 0.35 nm apart, and a neutral
     five-atom chain (CA-CB-CC-CD-CE) with one CMAP cross-term on a 24 x 24
-    map of 0.8 cos(phi) + 0.5 sin(2 psi) kcal/mol.  Returns the paths
-    (psf, prm, gro)."""
+    map of 0.8 cos(phi) + 0.5 sin(2 psi) kcal/mol.  The residues (IMA,
+    IMB, PEN) are listed cell by cell, or with ``by_species`` all IMA, then
+    all IMB, then all PEN, as topology files list them (the COM thermostat
+    group reduces over contiguous runs of molecules of one size, ROADMAP
+    C).  Returns the paths (psf, prm, gro)."""
     import math
     import os
     import numpy as np
@@ -1797,6 +1839,18 @@ def write_charmm_fixture(directory, n_side=3, spacing=0.8, seed=0):
                 cmaps.append((i + 4, i + 5, i + 6, i + 7,
                               i + 5, i + 6, i + 7, i + 8))
                 cell += 1
+    if by_species:
+        # atoms in species order, cell order within a species; residues
+        # renumbered in the new order, bonds and CMAP atoms (1-based) mapped
+        order = sorted(range(len(atoms)), key=lambda k: (
+            ("IMA", "IMB", "PEN").index(atoms[k][6]), k))
+        new_id = {old + 1: new + 1 for new, old in enumerate(order)}
+        rid = {}
+        atoms = [atoms[k][:7] + (rid.setdefault(atoms[k][7], len(rid) + 1),)
+                 for k in order]
+        pos = [pos[k] for k in order]
+        bonds = [tuple(new_id[a] for a in b) for b in bonds]
+        cmaps = [tuple(new_id[a] for a in c) for c in cmaps]
     lines = ["PSF DRUDE", "", "       1 !NTITLE",
              " REMARKS NBTHOLE and CMAP fixture", "",
              f"{len(atoms):8d} !NATOM"]
@@ -1937,6 +1991,317 @@ def charmm_phase():
         raise AssertionError("GB on the card disagrees with the CPU")
 
 
+def close_reporters(sim):
+    """Close the reporters that hold a file or a writer thread."""
+    for r in sim.reporters:
+        if hasattr(r, "close"):
+            r.close()
+
+
+class PositionProbe:
+    """A reporter that keeps the positions and the generator state at the
+    named steps (a report boundary at each)."""
+
+    def __init__(self, steps):
+        self.steps = sorted(steps)
+        self.seen = {}
+
+    def describeNextReport(self, simulation):
+        later = [s for s in self.steps if s > simulation.current_step]
+        return later[0] - simulation.current_step if later else 1 << 40
+
+    def report(self, simulation):
+        ctx = simulation.context
+        self.seen[simulation.current_step] = (
+            ctx.get_positions(), ctx.state.generator.get_state())
+
+
+def read_dcd(path):
+    """(NSET, frames as (n, 3) float32 Angstrom arrays) of a DCD file the
+    port's DCDReporter wrote."""
+    import numpy as np
+    with open(path, "rb") as fh:
+        raw = fh.read()
+    nset = int(np.frombuffer(raw[8:12], "<i4")[0])
+    n = int(np.frombuffer(raw[188:192], "<i4")[0])
+    frame = 56 + 3 * (8 + 4 * n)
+    body = raw[196:]
+    if len(body) % frame:
+        raise AssertionError("the DCD's frames are cut short")
+    frames = []
+    for k in range(len(body) // frame):
+        f = body[k * frame + 56:(k + 1) * frame]
+        frames.append(np.stack([np.frombuffer(
+            f[a * (8 + 4 * n) + 4:a * (8 + 4 * n) + 4 + 4 * n], "<f4")
+            for a in range(3)], 1))
+    return nset, frames
+
+
+def bulk_path(card, counters):
+    """Path 9: the application layer and the bulk CLI at full width.
+    run_bulk.simulation_from_args with run_bulk's defaults (Langevin on
+    every particle, 5/ps and the Drude pairs' 20/ps, the iso barostat every
+    100 steps, 333 K, dt 0.001) on write_charmm_fixture(BULK_SIDE,
+    by_species=True), the reporters cut to BULK_EVERY / BULK_GRO_EVERY and
+    writing into a temporary directory; minimize_energy(100) capped at
+    BULK_MIN_ITERATIONS; sim.step(20) warm-up; then timed in turns
+    sim.step(200) with the reporters, bare ctx.step(200) twice, sim.step(200)
+    again.  Gates on the first timed window: B1 >= 200 launches, every
+    StateData and DrudeTemperature row finite, the DCD's NSET frames with
+    the last equal to get_positions() at its step times float32 10, the GRO
+    frame count, and the step-150 checkpoint loaded by a fresh
+    simulation_from_args(--cpt) stepped to 190 within 1e-4 nm of the run,
+    with the same generator state there.  Then torch.profiler over 30 steps
+    with the reporters (one report of each) and 20 without, and the device
+    time of the step's autograd terms."""
+    import contextlib
+    import tempfile
+    # run_bulk's reporters write into the working directory
+    with tempfile.TemporaryDirectory() as d, contextlib.chdir(d):
+        return bulk_run(d, card, counters)
+
+
+def bulk_run(d, card, counters):
+    """``bulk_path`` in the working directory ``d``."""
+    import numpy as np
+    import torch
+    from openmm_velocityverlet_tpu_torch import app
+    from openmm_velocityverlet_tpu_torch.examples import run_bulk
+    from openmm_velocityverlet_tpu_torch.integrators.stepping import \
+        mol_runs_from_id
+    from openmm_velocityverlet_tpu_torch.units import ns_per_day
+    t0 = time.perf_counter()
+    psf, prm, gro = write_charmm_fixture(d, BULK_SIDE, by_species=True)
+    t_write = time.perf_counter() - t0
+    cli = ["--gro", gro, "--psf", psf, "--prm", prm]
+    sim = run_bulk.simulation_from_args(run_bulk.parser.parse_args(cli),
+                                        device=DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ctx, system = sim.context, sim.context.system
+    ev = ctx.evaluator
+    print(f"[bulk] {system.n_atoms} atoms ({system.drude_pairs.shape[0]}"
+          f" Drude pairs, {system.cmap_atoms.shape[0]} CMAP terms, "
+          f"{system.n_molecules} molecules in "
+          f"{len(mol_runs_from_id(np.asarray(system.particle_mol_id)))} "
+          f"runs), box {ctx.get_box().tolist()} nm, kmax {system.kmax}; "
+          f"fixture written in {t_write:.2f} s, run_bulk's "
+          f"gen_simulation done {build_s:.2f} s after the start; "
+          f"Langevin on {ctx.data.ld_normal.shape[0]} particles and "
+          f"{ctx.data.ld_pairs.shape[0]} Drude pairs, barostat "
+          f"{ctx.barostat.kind} every {ctx.barostat.frequency} steps, "
+          f"recip {ev.recip_method}, pair_mode {ev.pair_mode}, tile "
+          f"size {ev.pair_ts}")
+    close_reporters(sim)
+    probe = PositionProbe([RESUME_TO, 4 * BULK_EVERY])
+    sim.reporters[:] = [
+        app.CheckpointReporter("cpt.cpt", BULK_EVERY),
+        app.GroReporter("dump.gro", BULK_GRO_EVERY, logarithm=True),
+        app.DCDReporter("dump.dcd", BULK_EVERY),
+        app.StateDataReporter("state.txt", BULK_EVERY, box=False,
+                              volume=True),
+        app.DrudeTemperatureReporter("T_drude.txt", BULK_EVERY), probe]
+    for g, e in ctx.group_energies().items():
+        print(f"[bulk] E_{g}: {e:.4f} kJ/mol")
+    e0 = ctx.potential_energy()
+    t0 = time.perf_counter()
+    e_min = sim.minimize_energy(100, max_iterations=BULK_MIN_ITERATIONS)
+    torch.cuda.synchronize()
+    min_s = time.perf_counter() - t0
+    f = ctx.get_forces()
+    rms = float(np.sqrt(np.mean(np.sum(f.astype(np.float64) ** 2, -1))))
+    print(f"[bulk] minimize_energy(100, max_iterations="
+          f"{BULK_MIN_ITERATIONS}): {sim.minimize_iterations} iterations "
+          f"in {min_s:.3f} s ({min_s / max(sim.minimize_iterations, 1):.4f}"
+          f" s an iteration), energy {e0:.2f} -> {e_min:.2f} kJ/mol, RMS "
+          f"force {rms:.2f} kJ/mol/nm")
+    if not (np.isfinite(e_min) and e_min <= e0):
+        raise AssertionError("path 9: the minimizer did not go downhill")
+    t0 = time.perf_counter()
+    sim.step(20)
+    torch.cuda.synchronize()
+    print(f"[bulk] warm-up sim.step(20) {time.perf_counter() - t0:.3f} s,"
+          f" kinetic {ctx.kinetic_energy():.1f}")
+
+    dt = ctx.data.dt
+
+    def window(tag, run, n=200):
+        for fn in counters.values():
+            fn.launches = 0
+        syncs0, att0 = ctx.host_syncs, ctx.baro_attempts
+        t0 = time.perf_counter()
+        run(n)
+        torch.cuda.synchronize()
+        el = time.perf_counter() - t0
+        w = dict(sps=n / el, syncs=(ctx.host_syncs - syncs0) / n,
+                 launches={k: fn.launches for k, fn in counters.items()})
+        print(f"[bulk] {tag}: {n} steps (to step {ctx.current_step}) in "
+              f"{el:.4f} s: {w['sps']:.2f} steps/s, "
+              f"{ns_per_day(w['sps'], dt):.3f} ns/day on {card}; "
+              f"launches {w['launches']}, host syncs/step "
+              f"{w['syncs']:.3f}, barostat attempts "
+              f"{ctx.baro_attempts - att0}")
+        return w
+    w1 = window("sim.step(200) with reporters, turn 1", sim.step)
+    if w1["launches"]["B1"] < 200:
+        raise AssertionError(f"path 9: B1 launched {w1['launches']['B1']}"
+                             f" < 200 times")
+    bulk_gates(sim, probe, cli)
+    w2 = window("bare ctx.step(200), turn 2", ctx.step)
+    w3 = window("bare ctx.step(200), turn 3", ctx.step)
+    w4 = window("sim.step(200) with reporters, turn 4", sim.step)
+    check_finite("bulk", ctx, system)
+    rep = [w1["sps"], w4["sps"]]
+    bare = [w2["sps"], w3["sps"]]
+    print(f"[bulk] steps/s with the reporters {rep[0]:.2f}, {rep[1]:.2f}"
+          f" ({ns_per_day(statistics.mean(rep), dt):.3f} ns/day), bare "
+          f"{bare[0]:.2f}, {bare[1]:.2f} "
+          f"({ns_per_day(statistics.mean(bare), dt):.3f} ns/day); host "
+          f"syncs/step {w1['syncs']:.3f} / {w4['syncs']:.3f} with, "
+          f"{w2['syncs']:.3f} / {w3['syncs']:.3f} without")
+    # from step 820: 30 steps with the reporters end on a report of each
+    # 50-step reporter (step 850)
+    prof_rep = profile("path 9 with reporters", ctx,
+                       1e3 / statistics.mean(rep), top=6, run=sim.step,
+                       n=30)
+    prof_bare = profile("path 9", ctx, 1e3 / statistics.mean(bare), top=6)
+    autograd_term_times(ctx)
+    sim.flush()
+    close_reporters(sim)
+    return dict(launches=w1["launches"]["B1"], profile=(prof_rep, prof_bare))
+
+
+def autograd_term_times(ctx):
+    """The step's autograd terms on path 9, each energy and its gradient
+    at the context's positions (``ForceEvaluator._smooth_energy``'s calls):
+    the dense NBTHOLE sweep over the (Na, Na) pairs of its active atoms,
+    the matmul reciprocal and CMAP.  Returns {term: (CUDA-event ms of one
+    call, device ms of one call by torch.profiler over 5)}: where path 9's
+    device time goes."""
+    import torch
+    from openmm_velocityverlet_tpu_torch.ops import cmap, ewald, nonbonded
+    ev, s, t = ctx.evaluator, ctx.system, ctx.evaluator.t
+    box = ctx.state.box
+    terms = {
+        "nbthole": lambda p: nonbonded.nbthole_energy(
+            p, box, ev.nbthole, min(0.5, s.r_cutoff)),
+        "coul_recip": lambda p: ewald.reciprocal_energy(
+            p, box, t.charges, s.ewald_beta, s.kmax, chunk=ev.ewald_chunk),
+        "cmap": lambda p: cmap.cmap_energy(
+            p, box, t.cmap_atoms, t.cmap_map, t.cmap_coeffs, t.cmap_res)}
+    out = {}
+    for name, fn in terms.items():
+        def run(fn=fn):
+            p = ctx.state.pos.detach().requires_grad_(True)
+            with torch.enable_grad():
+                torch.autograd.grad(fn(p), p)
+        out[name] = (cuda_time_ms(run, reps=5), device_ms(run, calls=5))
+    n_active = int(ev.nbthole.active.shape[0])
+    print("[bulk] autograd terms, energy + gradient, ms (CUDA events / "
+          "device): " + ", ".join(f"{k} {v[0]:.3f} / {v[1]:.3f}"
+                                  for k, v in out.items())
+          + f"; NBTHOLE's dense sweep covers {n_active} active atoms, "
+          f"{n_active ** 2 / 1e6:.1f} M pairs")
+    return out
+
+
+def bulk_gates(sim, probe, cli):
+    """Path 9's gates on the reporters' files after the first timed window
+    (steps 20 to 220), and the checkpoint resume (see ``bulk_path``)."""
+    import os
+    import numpy as np
+    import torch
+    from openmm_velocityverlet_tpu_torch.examples import run_bulk
+    sim.flush()
+
+    def rows_of(path):
+        with open(path) as fh:
+            return [line.split("\t") for line in fh
+                    if not line.startswith("#")]
+    rows, t_rows = rows_of("state.txt"), rows_of("T_drude.txt")
+    steps = [int(r[0]) for r in rows]
+    want = list(range(BULK_EVERY, 20 + 200 + 1, BULK_EVERY))
+    if steps != want or [int(r[0]) for r in t_rows] != want or not all(
+            np.isfinite(float(x)) for r in rows + t_rows for x in r):
+        raise AssertionError(f"path 9: StateData / DrudeTemperature rows "
+                             f"{steps} not the expected {want}, or not finite")
+    print(f"[bulk] StateData rows (step, T K, volume nm^3, density g/mL): "
+          f"{[(r[0], r[5], r[6], r[7]) for r in rows]}")
+    print(f"[bulk] DrudeTemperature rows (step, T_COM, T_Atom, T_Drude): "
+          f"{[tuple(r[:4]) for r in t_rows]}")
+    nset, frames = read_dcd("dump.dcd")
+    last = probe.seen[want[-1]][0]
+    exact = bool(np.array_equal(frames[-1], last.astype(np.float32)
+                                * np.float32(10.0)))
+    err = float(np.abs(frames[-1] / 10.0 - last).max())
+    with open("dump.gro") as fh:
+        gro_frames = sum(line.startswith("written by") for line in fh)
+    print(f"[bulk] DCD: NSET {nset}, {len(frames)} frames; the last (step "
+          f"{want[-1]}) equal to get_positions() x float32 10: {exact} (max "
+          f"|frame/10 - pos| {err:.2e} nm); GRO frames {gro_frames}")
+    if nset != len(want) or len(frames) != nset or not exact \
+            or gro_frames != 2:
+        raise AssertionError("path 9: the DCD or GRO output is wrong")
+    ckpts = sorted(int(p.rsplit("_", 1)[1]) for p in os.listdir(".")
+                   if p.startswith("cpt.cpt_"))
+    if ckpts != [100, 150, 200]:
+        raise AssertionError(f"path 9: checkpoints {ckpts}, expected the "
+                             f"last three")
+    resumed = run_bulk.simulation_from_args(run_bulk.parser.parse_args(
+        cli + ["--cpt", f"cpt.cpt_{RESUME_FROM}"]), device=DEVICE)
+    if resumed.current_step != RESUME_FROM:
+        raise AssertionError("path 9: the checkpoint's step was not loaded")
+    resumed.step(RESUME_TO - RESUME_FROM)
+    torch.cuda.synchronize()
+    pos, gen = probe.seen[RESUME_TO]
+    dpos = float(np.abs(resumed.context.get_positions() - pos).max())
+    same_gen = bool(torch.equal(resumed.context.state.generator.get_state(),
+                                gen))
+    print(f"[bulk] checkpoint resume: step-{RESUME_FROM} checkpoint loaded by "
+          f"a fresh run_bulk simulation (--cpt), stepped to {RESUME_TO}: max "
+          f"|dpos| {dpos:.3e} nm against the run (gate 1e-4), generator "
+          f"state equal: {same_gen}")
+    if not (dpos < 1e-4 and same_gen):
+        raise AssertionError("path 9: the resumed run left the original")
+    close_reporters(resumed)
+
+
+def bulk_agreement():
+    """Path 9 at 27 cells: write_charmm_fixture(3, by_species=True) through
+    run_bulk with --thermostat nose-hoover --barostat no (the Langevin
+    streams of the card and the CPU differ), the same numpy velocities on
+    both, 10 steps on the card against the CPU: |dpos| < 1e-4 nm and the
+    terms within 1e-3 relative, as small_agreement."""
+    import contextlib
+    import tempfile
+    import numpy as np
+    from openmm_velocityverlet_tpu_torch.examples import run_bulk
+    out = {}
+    with tempfile.TemporaryDirectory() as d, contextlib.chdir(d):
+        psf, prm, gro = write_charmm_fixture(d, 3, by_species=True)
+        args = run_bulk.parser.parse_args([
+            "--gro", gro, "--psf", psf, "--prm", prm, "--thermostat",
+            "nose-hoover", "--barostat", "no"])
+        for dev in ("cpu", DEVICE):
+            sim = run_bulk.simulation_from_args(args, device=dev)
+            masses = np.asarray(sim.context.system.masses)
+            vel = np.random.default_rng(7).normal(
+                0.0, 0.3, (masses.shape[0], 3)) * (masses > 0.5)[:, None]
+            sim.context.set_velocities(vel)
+            sim.step(10)
+            out[dev] = (sim.context.get_positions(),
+                        sim.context.potential_energy_terms())
+            close_reporters(sim)
+    dpos = float(np.abs(out[DEVICE][0] - out["cpu"][0]).max())
+    worst = max(abs(out[DEVICE][1][k] - v) / (abs(v) + 1.0)
+                for k, v in out["cpu"][1].items())
+    print(f"[check] path 9 (run_bulk, nose-hoover, no barostat, "
+          f"{out['cpu'][0].shape[0]} atoms): 10-step card vs CPU: max |dpos|"
+          f" = {dpos:.3e} nm, max term diff/(|E|+1) = {worst:.3e}")
+    if not (dpos < 1e-4 and worst < 1e-3):
+        raise AssertionError("path 9: card run disagrees with the CPU run")
+
+
 def main():
     import numpy as np
     import torch
@@ -1950,6 +2315,11 @@ def main():
     from openmm_velocityverlet_tpu_torch.ops import pair_plist as pp
     from openmm_velocityverlet_tpu_torch.ops import pair_tri as pt
 
+    t_start = time.perf_counter()
+
+    def stamp(phase):
+        # where the script's own time goes, phase by phase
+        print(f"[time] {phase} from {time.perf_counter() - t_start:.1f} s")
     card = card_line()
     print(f"[card] {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
@@ -1980,6 +2350,7 @@ def main():
           f"kmax {system.kmax}, beta {system.ewald_beta:.4f}, "
           f"{time.perf_counter() - t0:.1f} s")
 
+    stamp("kernel phases")
     b1, b1_bound, b1_by, b1_evals, b1_pairs, b1_err = b1_phase(ctx1, system,
                                                                 pos)
     b2 = b2_phase(ctx1, system, pos)
@@ -1987,6 +2358,7 @@ def main():
     b3 = b3_phase(ctx1, system, pos)
     gat = gather_phase()
 
+    stamp("path 1")
     # path 1: the main path
     ev1 = ctx1.evaluator
     print(f"[slice] pair_mode {ev1.pair_mode}, tile size {ev1.pair_ts} "
@@ -1997,8 +2369,9 @@ def main():
     if l1["B1"] < 200:
         raise AssertionError(f"B1 launched {l1['B1']} < 200 times")
     check_finite("slice", ctx1, system)
-    profile("path 1", ctx1, el1 / 200 * 1e3)
+    prof1 = profile("path 1", ctx1, el1 / 200 * 1e3)
 
+    stamp("paths 2-5")
     # path 2: the z band (kernel B2)
     ctx2, _ = context(fold_exc14=True)
     ev2 = ctx2.evaluator
@@ -2054,10 +2427,12 @@ def main():
     del ctx2, ctx3, ctx4, ctx5
     torch.cuda.empty_cache()
 
+    stamp("path 6")
     # path 6: constant voltage at edl_Im21's counts (mirror route)
     edl = edl_path(card, dt, {"B1": pp.plist_pair})
     torch.cuda.empty_cache()
 
+    stamp("path 7")
     # path 7: NPT with the Monte Carlo barostat
     from openmm_velocityverlet_tpu_torch import BarostatConfig
     ctx7, _ = context(barostat=BarostatConfig("iso", 1.0, 333.0,
@@ -2086,6 +2461,7 @@ def main():
     del ctx7
     torch.cuda.empty_cache()
 
+    stamp("path 8")
     # path 8: the PME reciprocal
     ctx8, _ = context(recip="pme")
     ev8 = ctx8.evaluator
@@ -2103,8 +2479,21 @@ def main():
     profile("path 8", ctx8, el8 / 200 * 1e3, top=8)
     del ctx8
     torch.cuda.empty_cache()
+    stamp("recip_fit")
     fit = recip_fit()
 
+    stamp("path 9")
+    # path 9: the application layer through run_bulk at 19,773 atoms
+    bulk = bulk_path(card, {"B1": pp.plist_pair})
+    for tag, prof in (("path 1", prof1), ("path 9 with reporters",
+                                          bulk["profile"][0]),
+                      ("path 9", bulk["profile"][1])):
+        print(f"[bulk] kernels/step, {tag}: "
+              + (f"{prof[1]:.0f} (device busy {prof[0]:.3f} ms/step)"
+                 if prof else "not measured (no device time recorded)"))
+    torch.cuda.empty_cache()
+
+    stamp("card-vs-CPU checks")
     small_agreement("path 1")
     small_agreement("path 2 (fold_exc14, pair_ts 32)", fold_exc14=True,
                     pair_ts=32)
@@ -2120,8 +2509,11 @@ def main():
                     prepare=npt_draws,
                     barostat=BarostatConfig("iso", 1.0, 333.0, frequency=2))
     small_agreement("path 8 (pme)", recip="pme")
+    bulk_agreement()
+    stamp("A13/A15 phase")
     charmm_phase()
 
+    stamp("end")
     f, e = b1["force"], b1["energy"]
 
     def edl_recip(k):
@@ -2143,7 +2535,7 @@ def main():
          "energy_device_ms": e[3], "tile_size": ctx1.evaluator.pair_ts,
          "evaluations": b1_evals, "cutoff_pairs": b1_pairs,
          "launches_edl": edl["launches"], "launches_npt": l7["B1"],
-         "launches_pme": l8["B1"],
+         "launches_pme": l8["B1"], "launches_bulk": bulk["launches"],
          "edl_device_ms": edl["b1"]["force"][3],
          "edl_max_abs_err": max(edl["b1"]["force"][0],
                                 edl["b1"]["energy"][0]),

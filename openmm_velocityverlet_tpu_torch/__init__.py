@@ -8,7 +8,9 @@ image-charge constant voltage with the external-force toolbox
 (``ops/external.py``, ``models/helper.py``, ``edl_analysis.py``), the
 Monte Carlo barostat, FFT PME, NBTHOLE, CMAP and GB implicit solvent, and
 the CHARMM loaders (``models/prmfile.py``, ``psffile.py``, ``grofile.py``,
-``replicate.py``).
+``replicate.py``), the application layer (``app.py``: ``Simulation``,
+the L-BFGS minimizer, checkpoints and reporters) and the workload scripts
+(``examples/run_bulk.py``, ``examples/run_edl.py``).
 Its hand-written CUDA kernels for Hopper are B1, the plist pair sweep
 (``csrc/plist_pair.cu``), B2, the upper-triangle band / full sweep
 (``csrc/tri_pair.cu``), B3, the rectangular sweep (``csrc/rect_pair.cu``),

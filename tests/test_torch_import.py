@@ -21,10 +21,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_port_imports_without_jax():
     """Every module of the package, the tools subpackage, the A13 force
-    terms (ops/pme.py, ops/cmap.py, ops/gb.py) and the A15 loaders
-    (models/prmfile, psffile, grofile, replicate) included, imports with
-    jax absent from sys.modules (checked in a fresh interpreter), and none
-    pulls in triton."""
+    terms (ops/pme.py, ops/cmap.py, ops/gb.py), the A15 loaders
+    (models/prmfile, psffile, grofile, replicate), the A14 application
+    layer (app) and the A17 scripts (examples.run_bulk, run_edl) included,
+    imports with jax absent from sys.modules (checked in a fresh
+    interpreter), and none pulls in triton."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import openmm_velocityverlet_tpu_torch as p\n"
@@ -37,7 +38,8 @@ def test_port_imports_without_jax():
         "assert len(names) >= 15, names\n"
         "assert p.__name__ + '.tools.exp_gather_kernel' in names, names\n"
         "for m in ('ops.pme', 'ops.cmap', 'ops.gb', 'models.prmfile', "
-        "'models.psffile', 'models.grofile', 'models.replicate'):\n"
+        "'models.psffile', 'models.grofile', 'models.replicate', 'app', "
+        "'examples.run_bulk', 'examples.run_edl'):\n"
         "    assert p.__name__ + '.' + m in names, m\n"
         "print('ok', len(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
