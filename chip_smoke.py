@@ -2044,7 +2044,8 @@ def bulk_path(card, counters):
     100 steps, 333 K, dt 0.001) on write_charmm_fixture(BULK_SIDE,
     by_species=True), the reporters cut to BULK_EVERY / BULK_GRO_EVERY and
     writing into a temporary directory; minimize_energy(100) capped at
-    BULK_MIN_ITERATIONS; sim.step(20) warm-up; then timed in turns
+    BULK_MIN_ITERATIONS; B1 against its plain version on the minimized
+    positions (b1_case, 5e-5); sim.step(20) warm-up; then timed in turns
     sim.step(200) with the reporters, bare ctx.step(200) twice, sim.step(200)
     again.  Gates on the first timed window: B1 >= 200 launches, every
     StateData and DrudeTemperature row finite, the DCD's NSET frames with
@@ -2117,6 +2118,16 @@ def bulk_run(d, card, counters):
           f"force {rms:.2f} kJ/mol/nm")
     if not (np.isfinite(e_min) and e_min <= e0):
         raise AssertionError("path 9: the minimizer did not go downhill")
+    # B1 against its plain version at the shapes path 9 gives it: this
+    # fixture's bond / 1-4 exclusions, Drude pairs, LJ tables and n_pad
+    st = ctx.state
+    cache = ev.make_pair_cache(st.pos, st.box)
+    if bool(cache.overflow):
+        ctx._refit(st.pos, st.box)
+        cache = ev.make_pair_cache(st.pos, st.box)
+    b1_res, _, _ = b1_case("B1 bulk", ev, cache, st.pos, st.box, system,
+                           timed=False)
+    b1_err = max(b1_res["force"][0], b1_res["energy"][0])
     t0 = time.perf_counter()
     sim.step(20)
     torch.cuda.synchronize()
@@ -2168,31 +2179,24 @@ def bulk_run(d, card, counters):
     autograd_term_times(ctx)
     sim.flush()
     close_reporters(sim)
-    return dict(launches=w1["launches"]["B1"], profile=(prof_rep, prof_bare))
+    return dict(launches=w1["launches"]["B1"], b1_err=b1_err,
+                profile=(prof_rep, prof_bare))
 
 
 def autograd_term_times(ctx):
     """The step's autograd terms on path 9, each energy and its gradient
-    at the context's positions (``ForceEvaluator._smooth_energy``'s calls):
-    the dense NBTHOLE sweep over the (Na, Na) pairs of its active atoms,
-    the matmul reciprocal and CMAP.  Returns {term: (CUDA-event ms of one
-    call, device ms of one call by torch.profiler over 5)}: where path 9's
+    at the context's positions, through ``ForceEvaluator.smooth_terms``,
+    the functions the step itself sums: on this fixture the dense NBTHOLE
+    sweep over the (Na, Na) pairs of its active atoms, the matmul
+    reciprocal and CMAP.  Returns {term: (CUDA-event ms of one call,
+    device ms of one call by torch.profiler over 5)}: where path 9's
     device time goes."""
     import torch
-    from openmm_velocityverlet_tpu_torch.ops import cmap, ewald, nonbonded
-    ev, s, t = ctx.evaluator, ctx.system, ctx.evaluator.t
-    box = ctx.state.box
-    terms = {
-        "nbthole": lambda p: nonbonded.nbthole_energy(
-            p, box, ev.nbthole, min(0.5, s.r_cutoff)),
-        "coul_recip": lambda p: ewald.reciprocal_energy(
-            p, box, t.charges, s.ewald_beta, s.kmax, chunk=ev.ewald_chunk),
-        "cmap": lambda p: cmap.cmap_energy(
-            p, box, t.cmap_atoms, t.cmap_map, t.cmap_coeffs, t.cmap_res)}
+    ev = ctx.evaluator
     out = {}
-    for name, fn in terms.items():
+    for name, fn in ev.smooth_terms(ctx.state.box).items():
         def run(fn=fn):
-            p = ctx.state.pos.detach().requires_grad_(True)
+            p = ev.place_vsites(ctx.state.pos).detach().requires_grad_(True)
             with torch.enable_grad():
                 torch.autograd.grad(fn(p), p)
         out[name] = (cuda_time_ms(run, reps=5), device_ms(run, calls=5))
@@ -2536,6 +2540,7 @@ def main():
          "evaluations": b1_evals, "cutoff_pairs": b1_pairs,
          "launches_edl": edl["launches"], "launches_npt": l7["B1"],
          "launches_pme": l8["B1"], "launches_bulk": bulk["launches"],
+         "bulk_max_abs_err": bulk["b1_err"],
          "edl_device_ms": edl["b1"]["force"][3],
          "edl_max_abs_err": max(edl["b1"]["force"][0],
                                 edl["b1"]["energy"][0]),

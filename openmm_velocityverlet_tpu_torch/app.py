@@ -10,6 +10,7 @@ bytes the JAX package's C encoder writes.
 """
 from __future__ import annotations
 
+import hashlib
 import math
 import os
 import pickle
@@ -193,12 +194,14 @@ _TENSOR_FIELDS = ("pos", "pos_err", "vel", "box", "nh_eta", "nh_eta_dot",
 def save_checkpoint(context: Context, filename):
     """Full-state checkpoint in the JAX package's layout,
     ``{"state": {...}, "version": 1}``: the State's tensors as numpy
-    arrays, the generator as ``generator.get_state().numpy()``, and step,
-    time and cos_v as numbers.  The barostat's state (its move size and
-    counters) is not saved, as in the JAX package."""
+    arrays, the generator as ``generator.get_state().numpy()`` beside its
+    device's kind, and step, time and cos_v as numbers.  The barostat's
+    state (its move size and counters) is not saved, as in the JAX
+    package."""
     st = context.state
     data = {k: getattr(st, k).cpu().numpy() for k in _TENSOR_FIELDS}
-    data.update(generator=st.generator.get_state().numpy(), step=st.step,
+    data.update(generator=st.generator.get_state().numpy(),
+                generator_device=st.generator.device.type, step=st.step,
                 time=st.time, cos_v=float(st.cos_v))
     with open(filename, "wb") as f:
         pickle.dump({"state": data, "version": 1}, f)
@@ -208,6 +211,12 @@ def load_checkpoint(context: Context, filename):
     """Restore every State field and the generator from ``filename``, then
     drop the VV scheme's force carry (the next ``step()`` builds a fresh
     pair cache in any case).
+
+    A generator's state belongs to its device's kind (the CPU's Mersenne
+    Twister, the card's Philox seed and offset).  A checkpoint written on
+    the other kind seeds the generator from the first 8 bytes of the saved
+    state's SHA-256: the load is deterministic, but the Langevin stream
+    leaves the one the uninterrupted run would have drawn.
 
     A checkpoint written by the JAX package (it carries ``rng_key``) is
     read through ``state_from_numpy``, with the generator seeded from the
@@ -223,8 +232,13 @@ def load_checkpoint(context: Context, filename):
             SimpleNamespace(**fields), device=dev,
             seed=(int(key[0]) << 32) | int(key[1]))
     else:
+        saved = np.asarray(fields["generator"], np.uint8)
         gen = torch.Generator(device=dev)
-        gen.set_state(torch.as_tensor(fields["generator"]))
+        if fields["generator_device"] == gen.device.type:
+            gen.set_state(torch.as_tensor(saved))
+        else:
+            gen.manual_seed(int.from_bytes(
+                hashlib.sha256(saved.tobytes()).digest()[:8], "little"))
         context.state = State(
             **{k: torch.as_tensor(fields[k], device=dev)
                for k in _TENSOR_FIELDS},

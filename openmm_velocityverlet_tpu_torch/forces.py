@@ -427,44 +427,46 @@ class ForceEvaluator:
                 f"{self.plist_cap_all}")
 
     # -- gradient terms ----------------------------------------------------
-    def _smooth_energy(self, pos, box):
+    def smooth_terms(self, box):
         """The terms whose force comes from autograd: the reciprocal, CMAP,
         NBTHOLE, GB, the TT damping and the external closures without an
-        ``analytic_force``."""
+        ``analytic_force``, each as a function of the placed positions:
+        {name: pos -> energy}."""
         s, t = self.system, self.t
         terms = {}
         if s.ewald_beta > 0 and self.recip_method == "pme":
             # over all atoms, images included (JAX forces.py:377-380)
-            terms["coul_recip"] = pme.reciprocal_energy_pme(
+            terms["coul_recip"] = lambda pos: pme.reciprocal_energy_pme(
                 pos, box, t.charges, s.ewald_beta, self.pme_grid)
         elif s.ewald_beta > 0 and self.recip_method == "exact_fused":
             # kernels B4 (forward) and B5 (backward): nothing of size
             # (N, K) is stored
-            terms["coul_recip"] = ewald_fused.reciprocal_energy_fused(
-                pos, box, t.charges, s.ewald_beta, s.kmax, 256)
+            terms["coul_recip"] = lambda pos: \
+                ewald_fused.reciprocal_energy_fused(
+                    pos, box, t.charges, s.ewald_beta, s.kmax, 256)
         elif s.ewald_beta > 0:
-            terms["coul_recip"] = ewald.reciprocal_energy(
+            terms["coul_recip"] = lambda pos: ewald.reciprocal_energy(
                 pos, box, t.charges, s.ewald_beta, s.kmax,
                 chunk=self.ewald_chunk, mirror=self.image_mirror)
         if s.cmap_atoms.shape[0] > 0:
-            terms["cmap"] = cmap.cmap_energy(
+            terms["cmap"] = lambda pos: cmap.cmap_energy(
                 pos, box, t.cmap_atoms, t.cmap_map, t.cmap_coeffs,
                 t.cmap_res)
         if self.nbthole is not None:
             # the reference truncates NBTHOLE at a hard-coded 0.5 nm
             # (oplspsffile.py:1407), not at the system cutoff
-            terms["nbthole"] = nonbonded.nbthole_energy(
+            terms["nbthole"] = lambda pos: nonbonded.nbthole_energy(
                 pos, box, self.nbthole, min(0.5, s.r_cutoff))
         if self.gb is not None:
             # all pairs, no bonded exclusions, no periodic images
-            terms["gb"] = gb.gb_energy(pos, t.charges, self.gb)
+            terms["gb"] = lambda pos: gb.gb_energy(pos, t.charges, self.gb)
         if s.tt_donors.shape[0] > 0:
-            terms["tt_damping"] = nonbonded.tt_damping_energy(
+            terms["tt_damping"] = lambda pos: nonbonded.tt_damping_energy(
                 pos, box, t.tt_donors, t.tt_charges, t.tt_dipole_mask,
                 t.exclusions, float(s.tt_b), float(s.tt_cutoff))
         for i, f in enumerate(self.external_forces):
             if getattr(f, "analytic_force", None) is None:
-                terms[f"external_{i}"] = f(pos, box)
+                terms[f"external_{i}"] = lambda pos, f=f: f(pos, box)
         return terms
 
     # -- full evaluation --------------------------------------------------
@@ -515,7 +517,8 @@ class ForceEvaluator:
 
         with torch.enable_grad():
             p = pos.detach().requires_grad_(True)
-            terms = self._smooth_energy(p, box)
+            terms = {k: fn(p)
+                     for k, fn in self.smooth_terms(box).items()}
             if terms:
                 e_smooth = sum(terms.values())
                 (grad_smooth,) = torch.autograd.grad(e_smooth, p)

@@ -276,6 +276,43 @@ def test_checkpoint_round_trip_is_bitwise(tmp_path):
     np.testing.assert_array_equal(ctx.get_velocities(), vel_after)
 
 
+def test_checkpoint_from_the_card_loads_on_the_cpu(tmp_path):
+    """A checkpoint whose generator state is the card's (Philox seed and
+    offset, 16 bytes) loads into a CPU Context: every State field bitwise,
+    the generator seeded from the saved state's SHA-256, the same on every
+    load, and the run steps on."""
+    import hashlib
+    import pickle
+    ctx = _langevin_context()
+    ctx.step(5)
+    path = str(tmp_path / "cpt")
+    tapp.save_checkpoint(ctx, path)
+    with open(path, "rb") as f:
+        blob = pickle.load(f)
+    assert blob["state"]["generator_device"] == "cpu"
+    card_state = np.arange(16, dtype=np.uint8)
+    blob["state"].update(generator=card_state, generator_device="cuda")
+    with open(path, "wb") as f:
+        pickle.dump(blob, f)
+    saved = _state_fields(ctx.state)
+    want = torch.Generator()
+    want.manual_seed(int.from_bytes(
+        hashlib.sha256(card_state.tobytes()).digest()[:8], "little"))
+    runs = []
+    for _ in range(2):
+        fresh = _langevin_context()
+        tapp.load_checkpoint(fresh, path)
+        for k, v in saved.items():
+            assert torch.equal(getattr(fresh.state, k), v), k
+        assert fresh.current_step == 5
+        assert torch.equal(fresh.state.generator.get_state(),
+                           want.get_state())
+        fresh.step(5)
+        runs.append(fresh.get_positions())
+    assert np.isfinite(runs[0]).all()
+    np.testing.assert_array_equal(runs[0], runs[1])
+
+
 def test_checkpoint_reporter_keeps_last_three(tmp_path):
     ctx = _langevin_context()
     sim = tapp.Simulation(None, ctx)
