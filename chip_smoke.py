@@ -25,10 +25,14 @@ Phases:
      B4/B5 (fused reciprocal) beside the matmul route, both
      also against a float64 evaluation on 512 atoms; B3 (the
      rectangular sweep) through its path, direct_space_tiled(symmetric=
-     False), and against B1's sweep of the same positions; B6-B8 (gathers)
-     through their path, the gather tool's main(), then bitwise against
-     their plain versions and torch.index_select, timed on the device
-     (torch.profiler) beside the library call;
+     False), and against B1's sweep of the same positions, with its pair
+     evaluations per pair within the cutoff (at most B3_MAX_EVALS) beside
+     the torch model of its skips, and its device time on a pre-sorted
+     layout at 4, 8 and 16 warps a row chunk; B6-B8 (gathers) through
+     their path, the gather tool's main(), then bitwise against their
+     plain versions and torch.index_select, timed on the device
+     (torch.profiler, else a CUDA graph of 50 calls between two events)
+     beside the library call, B7 against half its bound;
   3. path 1, the main path: Context with VVIntegrator(333, 10, 1, 40,
      0.001), setMaxDrudeDistance(0.02); step(20) warm-up, step(200) timed,
      B1 launched >= 200 times;
@@ -144,6 +148,14 @@ B4_OPS, B5_OPS = 8, 12
 # FP32 operations per pair within the cutoff in csrc/rect_pair.cu (the
 # count is in its header: each pair from both sides, energy form)
 RECT_OPS = 73
+# B3's ordered pair evaluations for each pair within the cutoff at most
+# (the full sweep of its first design made 268 at 19,500 atoms; a
+# both-sided sweep makes at least 2), and that design's time in ms (PERF.md's
+# kernel table, NVIDIA H100 80GB HBM3, 700.00 W); B7's first design's device
+# time in the same run
+B3_MAX_EVALS = 24
+B3_EARLIER_MS = 3.1309
+B7_EARLIER_DEVICE_MS = 0.0055
 # path 4: the Langevin group's kinetic temperature in the frame of the
 # group's own drift (the E-field pushes the other molecules along z, which
 # drag the Langevin group into a steady drift), averaged over steps 500 to
@@ -906,13 +918,40 @@ def b3_phase(ctx1, system, pos):
 
     pairs = cutoff_pairs(posd, boxd, rc)
     fout = pr.rect_pair(*args, **kw)
+    torch.cuda.synchronize()
+    evals = int(pr.rect_pair.evaluations.sum())
+    lay = pr.rect_layout(p2, boxd, n)
+    model = pr.culled_evaluations(lay, boxd, rc)
     b_ms, b_by = bound(pairs * RECT_OPS, nbytes(*args, fout))
     print(f"[kernel] B3: {pairs / 1e6:.3f} M pairs within the cutoff; bound "
-          f"on those {b_ms:.4f} ms ({b_by}); on its own "
-          f"{n_pad * n_pad / 1e6:.1f} M evaluations "
-          f"{bound(n_pad * n_pad * RECT_OPS, 0)[0]:.4f} ms")
+          f"on those {b_ms:.4f} ms ({b_by}); the kernel made {evals} ordered "
+          f"evaluations ({evals / pairs:.2f} a cutoff pair; the torch model "
+          f"of its skips {model}), the first design {n_pad * n_pad} "
+          f"({n_pad * n_pad / pairs:.1f} a pair)")
+    if evals > B3_MAX_EVALS * pairs:
+        raise AssertionError(f"B3 made {evals / pairs:.2f} evaluations a "
+                             f"cutoff pair (at most {B3_MAX_EVALS})")
+    # the kernel alone on a layout sorted beforehand (graph-capturable: no
+    # host read), the wrapper with its sort, and the warps a row chunk
+    wrap_dev = device_ms(lambda: pr.rect_pair(*args, **kw), graph=True)
+    wrap_measure = device_ms.measure
+    split_ms = {s: device_ms(lambda: pr.rect_pair_sorted(
+        lay, *args, splits=s, **kw), graph=True) for s in (4, 8, 16)}
+    dev = split_ms[pr.SPLITS]
+    measure = device_ms.measure
+    print(f"[kernel] B3: device time of the kernel {dev:.5f} ms "
+          f"({measure}; {pr.SPLITS} warps a row chunk), "
+          f"{100 * b_ms / dev:.2f}% of the bound; warps a row chunk "
+          f"{ {s: round(t, 5) for s, t in sorted(split_ms.items())} }; the "
+          f"wrapper with its sort {wrap_dev:.5f} ms device ({wrap_measure}), "
+          f"{ms:.4f} ms by events around one call (earlier design "
+          f"{B3_EARLIER_MS} ms)")
     return dict(launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by)
+                bound_ms=b_ms, bound_by=b_by, device_ms=dev,
+                device_measure=measure, wrapper_device_ms=wrap_dev,
+                split_device_ms=split_ms, evaluations=evals,
+                model_evaluations=model, cutoff_pairs=pairs,
+                evals_per_cutoff_pair=evals / pairs)
 
 
 def profiled_device_us(prof):
@@ -923,14 +962,18 @@ def profiled_device_us(prof):
     return sum(e.self_device_time_total for e in events), events
 
 
-def device_ms(fn, calls=50):
+def device_ms(fn, calls=50, graph=False):
     """Device time of one call: the CUDA kernel time torch.profiler records
     over ``calls`` calls (after a warm-up), divided by ``calls``.  For
     kernels of a few microseconds, where CUDA events around one call would
     time the host's launch gap.  Where the profiler records no device time
     (tried twice), the time is taken with one pair of CUDA events around
-    all ``calls`` calls: that includes the launch gaps the device waits
-    for, so it is an upper limit of the device time, and a line says so."""
+    all ``calls`` calls: with ``graph`` (a call that captures: no host read,
+    no synchronisation) as one CUDA graph of the ``calls`` calls replayed
+    between the events, which leaves out the host's launch gaps; else
+    eagerly, which includes them, an upper limit of the device time.
+    ``device_ms.measure`` names the measure of the last time returned:
+    "profiler", "graph events" or "eager events"."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
     fn()
@@ -942,23 +985,49 @@ def device_ms(fn, calls=50):
             torch.cuda.synchronize()
         us = profiled_device_us(prof)[0]
         if us > 0:
+            device_ms.measure = "profiler"
             return us / 1e3 / calls
     if not device_ms.warned:
         device_ms.warned = True
         print("[timing] torch.profiler recorded no device time: the device "
               "times of this run are CUDA-event times around a batch of "
-              "calls (launch gaps included, an upper limit)")
+              "calls, replayed as one CUDA graph where a line says \"graph "
+              "events\", else eager (launch gaps included, an upper limit)")
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        try:
+            with torch.cuda.graph(g):
+                for _ in range(calls):
+                    fn()
+        except RuntimeError as exc:
+            print(f"[timing] a call did not capture ({exc}); timed eagerly")
+        else:
+            g.replay()
+            torch.cuda.synchronize()
+            a.record()
+            g.replay()
+            b.record()
+            b.synchronize()
+            device_ms.measure = "graph events"
+            return a.elapsed_time(b) / calls
     a.record()
     for _ in range(calls):
         fn()
     b.record()
     b.synchronize()
+    device_ms.measure = "eager events"
     return a.elapsed_time(b) / calls
 
 
 device_ms.warned = False
+device_ms.measure = None
 
 
 def gather_phase():
@@ -996,9 +1065,10 @@ def gather_phase():
             raise AssertionError(f"{key}: the gather kernel is not bitwise "
                                  f"equal to its plain version, the library "
                                  f"call and itself")
-        ms = device_ms(lambda: fn(blk, idx))
-        plain_ms = device_ms(lambda: plain(blk, idx))
-        library_ms = device_ms(lambda: library(blk, idx))
+        ms = device_ms(lambda: fn(blk, idx), graph=True)
+        measure = device_ms.measure
+        plain_ms = device_ms(lambda: plain(blk, idx), graph=True)
+        library_ms = device_ms(lambda: library(blk, idx), graph=True)
         # of the block, the function reads only the rows (B6) or lanes (B7,
         # B8: idx % 128) that this run's indices name
         used = torch.unique(idx % 128 if key == "B8" else idx).numel()
@@ -1008,16 +1078,26 @@ def gather_phase():
         b_ms, b_by = bound(0, n_bytes)
         print(f"[kernel] {key} ({fn.__name__}): bitwise equal to its plain "
               f"version, torch.index_select and itself over 3 runs; device "
-              f"time kernel {ms:.5f} ms, plain {plain_ms:.5f}, library "
-              f"{library_ms:.5f}; bound {b_ms:.5f} ms ({b_by}, "
+              f"time ({measure}) kernel {ms:.5f} ms, plain {plain_ms:.5f}, "
+              f"library {library_ms:.5f}; bound {b_ms:.5f} ms ({b_by}, "
               f"{n_bytes / 1e6:.3f} MB: {used} of the block's "
               f"{blk.shape[0 if key == 'B6' else 1]} "
-              f"{'rows' if key == 'B6' else 'lanes'} read)")
+              f"{'rows' if key == 'B6' else 'lanes'} read), "
+              f"{100 * b_ms / ms:.1f}% of it")
         res[key] = dict(name=fn.__name__, launches=launches[key],
                         max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                         bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                        device_measure=measure,
                         tool_us_per_call=[v[0] for k, v in tool.items()
                                           if f"({key})" in k][0])
+    b7 = res["B7"]
+    print(f"[kernel] B7 against its targets: half of its bound "
+          f"(<= {2 * b7['bound_ms']:.5f} ms) "
+          f"{'met' if b7['ms'] <= 2 * b7['bound_ms'] else 'missed'}, no "
+          f"slower than index_select ({b7['library_ms']:.5f} ms) "
+          f"{'met' if b7['ms'] <= b7['library_ms'] else 'missed'}; the "
+          f"first design read {B7_EARLIER_DEVICE_MS} ms")
+    b7["earlier_device_ms"] = B7_EARLIER_DEVICE_MS
     return res
 
 
@@ -2586,14 +2666,25 @@ def main():
          "max_abs_err": b3["max_abs_err"], "ms": b3["ms"],
          "plain_ms": b3["plain_ms"], "bound_ms": b3["bound_ms"],
          "bound_by": b3["bound_by"], "library_ms": None,
-         "library_ms_why": "no single PyTorch call computes the sweep"}]
+         "library_ms_why": "no single PyTorch call computes the sweep",
+         "device_ms": b3["device_ms"], "device_measure": b3["device_measure"],
+         "wrapper_device_ms": b3["wrapper_device_ms"],
+         "split_device_ms": b3["split_device_ms"],
+         "evaluations": b3["evaluations"],
+         "model_evaluations": b3["model_evaluations"],
+         "cutoff_pairs": b3["cutoff_pairs"],
+         "evals_per_cutoff_pair": b3["evals_per_cutoff_pair"],
+         "earlier_ms": B3_EARLIER_MS}]
         + [{"name": g["name"], "route": "cuda", "source": src + "gather.cu",
             "replaces": "tools/exp_gather_kernel.py:" + line,
             "launches": g["launches"], "max_abs_err": g["max_abs_err"],
             "ms": g["ms"], "plain_ms": g["plain_ms"],
             "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
             "library_ms": g["library_ms"],
-            "tool_us_per_call": g["tool_us_per_call"]}
+            "device_measure": g["device_measure"],
+            "tool_us_per_call": g["tool_us_per_call"],
+            **({"earlier_device_ms": g["earlier_device_ms"]}
+               if "earlier_device_ms" in g else {})}
            for g, line in ((gat["B6"], "39"), (gat["B7"], "59"),
                            (gat["B8"], "80"))]}))
     print(card)

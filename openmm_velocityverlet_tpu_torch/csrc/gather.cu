@@ -17,11 +17,23 @@
 //     size, stays in L2) and the output row is written as one coalesced
 //     512-byte store.  Widths that are not a multiple of 4 take a scalar
 //     loop.
-//   * B7/B8: the (8, C) block (32 KB at C = 1024; B8 only its first 128
-//     columns) is staged in shared memory by each of at most 264 blocks,
-//     which walk the output columns with a grid stride; a thread reads an
-//     index once and writes its 8 values, neighbouring threads on
-//     neighbouring addresses in each of the 8 output rows.
+//   * B7: no staging.  The (8, C) block (32 KB at C = 1024) is read through
+//     the read-only path (__ldg), where it stays in L1 and L2.  One thread
+//     an output column: one index load, then the 8 rows' table reads issued
+//     together (the row count a template constant for the tool's 8) and 8
+//     stores, neighbouring threads on neighbouring addresses in each row;
+//     one block of 256 threads for each 256 columns.  The first design
+//     staged the whole 32 KB table in shared memory in each of up to 264
+//     blocks behind a __syncthreads(): 8.4 MB of L2 reads for 4.75 MB of
+//     useful traffic, 26% of the bound.  Four columns a thread (16-byte
+//     index loads and stores), one wave of the card, and staged variants
+//     with fewer blocks or one row a block each measured slower than this
+//     on the H100.
+//   * B8: the block's first 128 columns (4 KB) are staged in shared memory
+//     by each of at most 264 blocks, which walk the output columns with a
+//     grid stride; a thread reads an index once and writes its 8 values,
+//     neighbouring threads on neighbouring addresses in each of the 8 output
+//     rows.
 // An index outside the block's range writes zeros instead of reading out of
 // bounds (the plain versions raise); the tool draws every index in range.
 //
@@ -58,15 +70,32 @@ gather_rows_kernel(const float* __restrict__ blk, const int* __restrict__ idx,
   }
 }
 
-// out[r, j] = blk[r, idx[j]] (Mod128 false) or blk[r, idx[j] mod 128].
-// Each block stages the block (its first 128 columns with Mod128) once and
-// walks the output columns with a grid stride.
-template <bool Mod128>
+// B7: out[r, j] = blk[r, idx[j]], one output column a thread.  Rows > 0
+// fixes the row count at compile time (the tool's 8), so that the reads of
+// all rows are issued together; Rows = 0 takes n_rows.
+template <int Rows>
 __global__ void __launch_bounds__(kThreads)
 gather_lanes_kernel(const float* __restrict__ blk, const int* __restrict__ idx,
                     float* __restrict__ out, int n_rows, int n_cols, int m) {
+  const int j = blockIdx.x * kThreads + threadIdx.x;
+  if (j >= m) return;
+  const int s = __ldg(idx + j);
+  const bool ok = s >= 0 && s < n_cols;
+  const int rows = Rows > 0 ? Rows : n_rows;
+#pragma unroll
+  for (int r = 0; r < rows; ++r)
+    out[(size_t)r * m + j] = ok ? __ldg(blk + (size_t)r * n_cols + s) : 0.f;
+}
+
+// B8: out[r, j] = blk[r, idx[j] mod 128].  Each block stages the block's
+// first 128 columns once and walks the output columns with a grid stride.
+__global__ void __launch_bounds__(kThreads)
+gather_lanes_mod128_kernel(const float* __restrict__ blk,
+                           const int* __restrict__ idx,
+                           float* __restrict__ out, int n_rows, int n_cols,
+                           int m) {
   extern __shared__ float s_blk[];
-  const int w = Mod128 ? 128 : n_cols;  // staged width
+  const int w = 128;  // staged width
   for (int k = threadIdx.x; k < n_rows * w; k += kThreads) {
     const int r = k / w;
     s_blk[k] = blk[(size_t)r * n_cols + (k - r * w)];
@@ -75,7 +104,7 @@ gather_lanes_kernel(const float* __restrict__ blk, const int* __restrict__ idx,
   for (int j = blockIdx.x * kThreads + threadIdx.x; j < m;
        j += gridDim.x * kThreads) {
     int s = idx[j];
-    if (Mod128) s = ((s % 128) + 128) % 128;
+    s = ((s % 128) + 128) % 128;
     const bool ok = s >= 0 && s < w;
     for (int r = 0; r < n_rows; ++r)
       out[(size_t)r * m + j] = ok ? s_blk[r * w + s] : 0.f;
@@ -98,37 +127,37 @@ int gather_rows_launch(const float* blk, const int* idx, float* out,
   return (int)cudaGetLastError();
 }
 
-// B7 (mod128 = 0) and B8 (mod128 = 1).  The staged block (n_rows x n_cols,
-// or n_rows x 128 with mod128) must fit in shared memory.
+// B7 (mod128 = 0) and B8 (mod128 = 1).  B8's staged 128 columns must fit
+// in shared memory.
 int gather_lanes_launch(const float* blk, const int* idx, float* out,
                         int n_rows, int n_cols, int m, int mod128,
                         void* stream) {
-  const size_t smem =
-      (size_t)n_rows * (mod128 ? 128 : n_cols) * sizeof(float);
-  if (n_rows < 1 || n_cols < 1 || m < 0 || smem > 227 * 1024 ||
-      (mod128 && n_cols < 128))
+  const size_t smem = (size_t)n_rows * 128 * sizeof(float);
+  if (n_rows < 1 || n_cols < 1 || m < 0 ||
+      (mod128 && (n_cols < 128 || smem > 227 * 1024)))
     return (int)cudaErrorInvalidValue;
   if (m == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  // two blocks an SM at most: each block stages the table once
-  const int need = (m + kThreads - 1) / kThreads;
-  const int blocks = need < 264 ? need : 264;
   cudaError_t err;
   if (mod128) {
-    err = cudaFuncSetAttribute(gather_lanes_kernel<true>,
+    // two blocks an SM at most: each block stages the table once
+    const int need = (m + kThreads - 1) / kThreads;
+    const int blocks = need < 264 ? need : 264;
+    err = cudaFuncSetAttribute(gather_lanes_mod128_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
-    gather_lanes_kernel<true><<<blocks, kThreads, smem, st>>>(
+    gather_lanes_mod128_kernel<<<blocks, kThreads, smem, st>>>(
         blk, idx, out, n_rows, n_cols, m);
-  } else {
-    err = cudaFuncSetAttribute(gather_lanes_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    gather_lanes_kernel<false><<<blocks, kThreads, smem, st>>>(
-        blk, idx, out, n_rows, n_cols, m);
+    return (int)cudaGetLastError();
   }
+  const int blocks = (m + kThreads - 1) / kThreads;
+  if (n_rows == 8)
+    gather_lanes_kernel<8><<<blocks, kThreads, 0, st>>>(blk, idx, out, n_rows,
+                                                       n_cols, m);
+  else
+    gather_lanes_kernel<0><<<blocks, kThreads, 0, st>>>(blk, idx, out, n_rows,
+                                                       n_cols, m);
   return (int)cudaGetLastError();
 }
 

@@ -2,14 +2,15 @@
 //
 // Replaces openmm_velocityverlet_tpu/ops/pallas_pair.py:_pair_kernel
 // (launched by _run, the symmetric=False branch of direct_space_pallas).
-// Every row atom of the padded, unsorted layout meets every column atom, so
-// each unordered pair is evaluated from both sides and no Newton reaction is
-// kept.  Per pair (row i, column j, delta = j - i), in the JAX kernel's
-// order:
-//   * minimum image dx - bx * rint(dx * (1/bx)) (rintf: half to even, as
-//     jnp.round; times the reciprocal, as the JAX kernel);
-//   * exclusions: bit delta of the row's mask for delta in 1..31, bit -delta
-//     of the column's mask for delta in -31..-1;
+// Every real row atom meets every real column atom, so each unordered pair
+// is evaluated from both sides and no Newton reaction is kept.  Per pair
+// (row i, column j in original indices, delta = j - i), in the JAX
+// kernel's order:
+//   * minimum image dx - bx * rint(dx * (1/bx)) on the positions as given
+//     (rintf: half to even, as jnp.round; times the reciprocal, as the JAX
+//     kernel);
+//   * exclusions: bit |delta| of the lower index's mask for |delta| in
+//     1..31;
 //   * alive = delta != 0 && i < n && j < n: pads are masked by index, not by
 //     distance (a pad at 1e6 wraps back into the box under the minimum
 //     image);
@@ -22,24 +23,49 @@
 //     for every alive excluded pair at any distance.
 // Output fout (n_pad, 8) = fx, fy, fz, e_lj, e_coul, e_corr, 0, 0 per row.
 //
-// Design.  The TPU kernel carries a (tm, 1) accumulator across an in-kernel
-// loop over column tiles, with the whole column table resident in VMEM.
-// Here one thread owns one row atom (kRows rows a block) and walks every
-// column in column order, so each row's sums are taken in one fixed order:
-// bitwise deterministic with no atomics and no second pass.  Column tiles of
-// kTile atoms (position, charge, exclusion mask, LJ type and group: 28 B a
-// column, 14 KB a tile) are staged in shared memory by the whole block and
-// read by every thread as a broadcast.  The row's LJ row (ab) and group row
-// stay in global memory behind __ldg: T and G are small, so they live in L1.
-//
 // Bound: arithmetic.  A pair within the cutoff costs 73 FP32 operations
-// (RECT_OPS in chip_smoke.py, counted below); device-memory traffic is the
-// column tables read once per block (n_pad / kRows times), tiny beside
-// that.  The sweep visits all n_pad^2 ordered pairs, ~99% of them outside
-// the cutoff at 19.5k atoms: those cost the minimum image, r^2 and the
-// masks (~25 operations) and skip the rest, which changes no sum (a masked
-// pair adds zero).  At 19,968 atoms one thread per row gives 156 blocks of
-// 4 warps on 132 SMs, a low occupancy that the first version accepts.
+// (RECT_OPS in chip_smoke.py, counted below); the bytes (positions and
+// per-atom columns, the output) are small next to that.  What a sweep loses
+// against the bound is the pairs it evaluates beyond the cutoff: the TPU
+// kernel, and this kernel's first design, evaluated all n_pad^2 ordered
+// pairs, 268 for each pair within the cutoff at 19,500 atoms.
+//
+// Design (the chunk boxes and column vote of kernels B1 and B2, without a
+// list and without a column reaction).
+//   * Layout.  The wrapper (ops/pair_rect.py:rect_layout, plain torch on
+//     the card) sorts the n real atoms in stable Morton order of their
+//     wrapped positions and cuts them into chunks of 32 slots: `oid` gives
+//     each slot's original index (-1 on the slots that fill the last
+//     chunk), `cbox` each chunk's bounding box (centre, half extent grown
+//     by 1e-3 nm).  Pads never enter a chunk.  The pair arithmetic reads
+//     the original arrays through `oid`, on the positions as given.
+//   * One block a row chunk, `splits` warps (ops/pair_rect.py:SPLITS, 16:
+//     at 19,500 atoms 610 blocks of 512 threads), each warp holding the
+//     32 row atoms one a lane.  The block first tests its box against every
+//     column chunk's box (the periodic gap between the two boxes against
+//     the cutoff, 32 chunks a ballot; (n/32)^2 tests in all, no list, no
+//     host read, no capacity).  The kept chunks go to the warps in turn, in
+//     chunk order.  In a kept chunk each lane loads one column atom and
+//     tests its distance to the row box; the ballot gives the columns to
+//     visit, four a round (four independent chains for the scheduler).
+//     Both distances bound every pair's minimum-image distance from below,
+//     so no pair within the cutoff is dropped; the squared reach is the
+//     cutoff's grown by 1e-4 (ops/pair_rect.py:skip_r2).
+//   * The rows' LJ rows (a, b by column type) and group rows are read with
+//     __ldg: T and G are small, so they live in L1 (staging them in shared
+//     memory measured no faster).
+//   * Excluded pairs count at any distance, so the culled pass skips every
+//     excluded pair, and warp 0 adds them in a band pass over original
+//     indices (i - 31 .. i + 31) after the reduction: 62 mask tests a row.
+//   * Fixed order, no atomics: each warp writes its row partials to shared
+//     memory, warp 0 adds them in warp order, then the band pass, and
+//     writes the row of `oid`.  Bitwise equal from run to run.
+//   * Rows n..n_pad of fout are written as zeros by a grid-stride loop.
+//   * `evals[c]` counts the ordered pair evaluations of row chunk c (32
+//     rows times four columns a round), for the record.
+//
+// Rounding: the kernel adds each row's pairs in another order than its
+// plain version, so the two agree to float32 rounding, not bitwise.
 //
 // FP32 operations per pair within the cutoff (rsqrtf, rintf, fminf/fmaxf,
 // division and expf count one each, a fused multiply-add two): minimum
@@ -51,174 +77,283 @@
 
 namespace {
 
-constexpr int kRows = 128;  // row atoms (threads) per block
-constexpr int kTile = 512;  // column atoms per shared-memory tile
+constexpr int kBatch = 4;       // columns a round of the pair loop
+constexpr int kMaxSplits = 16;  // warps a block at most
+constexpr int kParts = 5;       // fx, fy, fz, e_lj, e_coul
+constexpr int kMaxExcl = 31;    // MAX_EXCL_OFFSET
 constexpr float kOne4PiEps0 = 138.935456f;
+constexpr unsigned kFull = 0xffffffffu;
 
 struct Params {
-  const float* pos;    // (n_pad, 3)
+  const float* pos;    // (n_pad, 3), original order
   const float* q;      // (n_pad,)
   const float* ab;     // (n_pad, ab_w) rows [A | B ...]
-  const int* ctype;    // (n_pad,) LJ type, -1 on pad atoms
+  const int* ctype;    // (n_pad,) LJ type
   const int* cgroup;   // (n_pad,) interaction group
   const float* grows;  // (n_pad, g_dim) group-allowed rows, or null
   const int* bits;     // (n_pad,) exclusion masks
   const float* box;    // (3,)
+  const int* oid;      // (n_c * 32,) original index of each slot, -1: none
+  const float4* cbox;  // (n_c, 2): chunk box centre, half extent
   float* fout;         // (n_pad, 8)
-  int ab_w, t_dim, g_dim, n_pad, n;
-  float beta, rc2, r_cutoff, r_switch, gauss_pref;
+  long long* evals;    // (n_c,)
+  int ab_w, t_dim, g_dim, n_pad, n, n_c, splits;
+  float beta, rc2, skip_r2, r_cutoff, r_switch, gauss_pref;
 };
 
-__global__ void __launch_bounds__(kRows) rect_pair_kernel(Params p) {
-  __shared__ float s_x[kTile], s_y[kTile], s_z[kTile], s_q[kTile];
-  __shared__ int s_t[kTile], s_g[kTile], s_b[kTile];
+__device__ __forceinline__ float min_image(float d, float L, float iL) {
+  return d - L * rintf(d * iL);
+}
 
-  const int row = blockIdx.x * kRows + threadIdx.x;
-  const bool has_row = row < p.n_pad;
+// The A&S 7.1.26 erfc(beta r) with a full-range expf, and the Gaussian
+// term gauss_pref * exp(-(beta r)^2).
+__device__ __forceinline__ void coulomb(const Params& p, float r,
+                                        float* erfc_br, float* gauss) {
+  const float br = p.beta * r;
+  const float expm = expf(-br * br);
+  const float t = 1.0f / (1.0f + 0.3275911f * br);
+  *erfc_br =
+      (t * (0.254829592f +
+            t * (-0.284496736f +
+                 t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))))) *
+      expm;
+  *gauss = p.gauss_pref * expm;
+}
+
+// Squared gap of u beyond the half extents (hx, hy, hz) after the minimum
+// image: a lower bound of the distances of the pairs the boxes hold.
+__device__ __forceinline__ float gap2(float ux, float uy, float uz, float hx,
+                                      float hy, float hz, const float* L,
+                                      const float* iL) {
+  const float gx = fmaxf(fabsf(min_image(ux, L[0], iL[0])) - hx, 0.f);
+  const float gy = fmaxf(fabsf(min_image(uy, L[1], iL[1])) - hy, 0.f);
+  const float gz = fmaxf(fabsf(min_image(uz, L[2], iL[2])) - hz, 0.f);
+  return gx * gx + gy * gy + gz * gz;
+}
+
+// Bytes of dynamic shared memory: per warp 32 column atoms as float4
+// (x, y, z, q) and int4 (type, group, mask, original index) and its row
+// partials; the block's kept-chunk bitmap and evaluation counts.
+__host__ __device__ inline int smem_bytes(int splits, int n_words) {
+  return splits * (32 * 32 + kParts * 32 * 4 + 4) + n_words * 4;
+}
+
+__global__ void __launch_bounds__(kMaxSplits * 32) rect_pair_kernel(Params p) {
+  extern __shared__ float4 smem[];
+  const int S = p.splits;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float4* s_c = smem + warp * 64;
+  int4* s_i = reinterpret_cast<int4*>(smem + warp * 64 + 32);
+  float* s_part = reinterpret_cast<float*>(smem + S * 64);
+  unsigned* s_ev = reinterpret_cast<unsigned*>(s_part + S * kParts * 32);
+  unsigned* s_mask = s_ev + S;
+
+  // rows n..n_pad: zeros
+  for (int z = p.n + blockIdx.x * blockDim.x + threadIdx.x; z < p.n_pad;
+       z += gridDim.x * blockDim.x) {
+    float4* o = reinterpret_cast<float4*>(p.fout + (size_t)z * 8);
+    o[0] = make_float4(0.f, 0.f, 0.f, 0.f);
+    o[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  const int rc = blockIdx.x;
+  if (rc >= p.n_c) return;  // the whole block: n = 0 launches one block
+
+  const float L[3] = {p.box[0], p.box[1], p.box[2]};
+  const float iL[3] = {1.0f / L[0], 1.0f / L[1], 1.0f / L[2]};
+  const float4 m = p.cbox[2 * rc], h = p.cbox[2 * rc + 1];
+  const int n_words = (p.n_c + 31) >> 5;
+
+  // 1. the column chunks in reach of this row chunk, 32 a ballot
+  for (int w = warp; w < n_words; w += S) {
+    const int cc = w * 32 + lane;
+    bool reach = false;
+    if (cc < p.n_c) {
+      const float4 cm = p.cbox[2 * cc], ch = p.cbox[2 * cc + 1];
+      reach = gap2(cm.x - m.x, cm.y - m.y, cm.z - m.z, h.x + ch.x, h.y + ch.y,
+                   h.z + ch.z, L, iL) <= p.skip_r2;
+    }
+    const unsigned b = __ballot_sync(kFull, reach);
+    if (lane == 0) s_mask[w] = b;
+  }
+
+  // the row atom of this lane
+  const int oid_r = p.oid[rc * 32 + lane];
+  const bool row_real = oid_r >= 0;
+  const int ri = row_real ? oid_r : 0;
+  const float px = p.pos[3 * ri], py = p.pos[3 * ri + 1],
+              pz = p.pos[3 * ri + 2];
+  const float qrow = kOne4PiEps0 * p.q[ri];
+  const unsigned bits_r = (unsigned)p.bits[ri];
+  const float* arow = p.ab + (size_t)ri * p.ab_w;
   const bool groups = p.grows != nullptr;
-  float px = 0.f, py = 0.f, pz = 0.f, qrow = 0.f;
-  unsigned bits_r = 0u;
-  const float* arow = p.ab;
-  const float* grow = p.grows;
-  if (has_row) {
-    px = p.pos[3 * row];
-    py = p.pos[3 * row + 1];
-    pz = p.pos[3 * row + 2];
-    qrow = kOne4PiEps0 * p.q[row];
-    bits_r = (unsigned)p.bits[row];
-    arow = p.ab + (size_t)row * p.ab_w;
-    if (groups) grow = p.grows + (size_t)row * p.g_dim;
-  }
-  const bool row_real = row < p.n;
-  const float bx = p.box[0], by = p.box[1], bz = p.box[2];
-  const float ibx = 1.0f / bx, iby = 1.0f / by, ibz = 1.0f / bz;
+  const float* grow = groups ? p.grows + (size_t)ri * p.g_dim : nullptr;
   const int T = p.t_dim;
+  const float inv_w =
+      p.r_switch > 0.f ? 1.0f / (p.r_cutoff - p.r_switch) : 0.f;
+  __syncthreads();
 
-  float fx = 0.f, fy = 0.f, fz = 0.f, elj = 0.f, ecoul = 0.f, ecorr = 0.f;
-  for (int c0 = 0; c0 < p.n_pad; c0 += kTile) {
-    const int nc = min(kTile, p.n_pad - c0);
-    __syncthreads();  // the previous tile is no longer read
-    for (int k = threadIdx.x; k < nc; k += kRows) {
-      const int cj = c0 + k;
-      s_x[k] = p.pos[3 * cj];
-      s_y[k] = p.pos[3 * cj + 1];
-      s_z[k] = p.pos[3 * cj + 2];
-      s_q[k] = p.q[cj];
-      s_t[k] = p.ctype[cj];
-      s_g[k] = p.cgroup[cj];
-      s_b[k] = p.bits[cj];
-    }
-    __syncthreads();
-    if (!has_row) continue;
-    for (int k = 0; k < nc; ++k) {
-      const int col = c0 + k;
-      float dx = px - s_x[k];
-      float dy = py - s_y[k];
-      float dz = pz - s_z[k];
-      dx = dx - bx * rintf(dx * ibx);
-      dy = dy - by * rintf(dy * iby);
-      dz = dz - bz * rintf(dz * ibz);
-      const float r2 = dx * dx + dy * dy + dz * dz;
-
-      const int delta = col - row;
-      bool excl = false;
-      if (delta >= 1 && delta <= 31) {
-        excl = (bits_r >> delta) & 1u;
-      } else if (delta <= -1 && delta >= -31) {
-        excl = (((unsigned)s_b[k]) >> (-delta)) & 1u;
-      }
-      const bool alive = delta != 0 && row_real && col < p.n;
-      const bool in_range = alive && !excl && r2 < p.rc2;
-      const bool corr = alive && excl;
-      if (!in_range && !corr) continue;
-
-      const int ct = s_t[k];
-      float a = 0.f, b = 0.f;
-      if (ct >= 0) {
-        a = __ldg(arow + ct);
-        b = __ldg(arow + T + ct);
-        if (groups) {
-          const float allowed = __ldg(grow + s_g[k]);
-          a = a * allowed;
-          b = b * allowed;
+  // 2. the kept chunks, dealt to the warps in turn
+  float fx = 0.f, fy = 0.f, fz = 0.f, elj = 0.f, ecoul = 0.f;
+  unsigned n_eval = 0;
+  int k = 0;
+  for (int w = 0; w < n_words; ++w) {
+    unsigned word = s_mask[w];
+    while (word != 0) {
+      const int bit = __ffs(word) - 1;
+      word &= word - 1;
+      if (k++ % S != warp) continue;
+      const int cc = w * 32 + bit;
+      const int oid_c = p.oid[cc * 32 + lane];
+      const bool col_real = oid_c >= 0;
+      const int ci = col_real ? oid_c : 0;
+      const float cx = p.pos[3 * ci], cy = p.pos[3 * ci + 1],
+                  cz = p.pos[3 * ci + 2];
+      const bool keep =
+          col_real && gap2(cx - m.x, cy - m.y, cz - m.z, h.x, h.y, h.z, L,
+                           iL) <= p.skip_r2;
+      unsigned mask = __ballot_sync(kFull, keep);
+      __syncwarp();
+      s_c[lane] = make_float4(cx, cy, cz, p.q[ci]);
+      s_i[lane] = make_int4(p.ctype[ci], p.cgroup[ci], p.bits[ci], oid_c);
+      __syncwarp();
+      while (mask != 0) {
+        int jb[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          jb[u] = mask != 0 ? __ffs(mask) - 1 : -1;
+          mask &= mask - 1;
         }
-      }
-      const float qq = qrow * s_q[k];
-      const float r2s = fmaxf(r2, 1e-10f);
-      const float inv_r = rsqrtf(r2s);
-      const float inv_r2 = inv_r * inv_r;
-      const float r = r2s * inv_r;
+        n_eval += 32u * kBatch;
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const bool live = jb[u] >= 0;  // an empty slot computes column 0
+          const int j = live ? jb[u] : 0;  // for nothing
+          const float4 c = s_c[j];
+          const int4 ci4 = s_i[j];
+          const float dx = min_image(px - c.x, L[0], iL[0]);
+          const float dy = min_image(py - c.y, L[1], iL[1]);
+          const float dz = min_image(pz - c.z, L[2], iL[2]);
+          const float r2 = dx * dx + dy * dy + dz * dz;
+          const int delta = ci4.w - oid_r;
+          const int dabs = delta >= 0 ? delta : -delta;
+          const unsigned lower = delta > 0 ? bits_r : (unsigned)ci4.z;
+          const bool excl =
+              dabs <= kMaxExcl && ((lower >> (dabs & 31)) & 1u) != 0u;
+          const bool in_range =
+              live && row_real && delta != 0 && !excl && r2 < p.rc2;
 
-      // the Coulomb kernel: A&S 7.1.26 erfc, full-range expf
-      const float br = p.beta * r;
-      const float expm = expf(-br * br);
-      const float t = 1.0f / (1.0f + 0.3275911f * br);
-      const float erfc_br =
-          (t * (0.254829592f +
-                t * (-0.284496736f +
-                     t * (1.421413741f +
-                          t * (-1.453152027f + t * 1.061405429f))))) *
-          expm;
-      const float gauss = p.gauss_pref * expm;
-      if (in_range) {
-        const float inv_r2_lj = 1.0f / fmaxf(r2, 1e-6f);
-        const float inv_r6 = inv_r2_lj * inv_r2_lj * inv_r2_lj;
-        const float inv_r12 = inv_r6 * inv_r6;
-        float e_lj = a * a * inv_r12 - b * inv_r6;
-        float f_lj = (12.0f * a * a * inv_r12 - 6.0f * b * inv_r6) * inv_r2_lj;
-        if (p.r_switch > 0.f) {
-          const float inv_w = 1.0f / (p.r_cutoff - p.r_switch);
-          const float x = fminf(fmaxf((r - p.r_switch) * inv_w, 0.f), 1.f);
-          const float x2 = x * x;
-          const float sw = 1.0f + x * x2 * (-10.0f + x * (15.0f - 6.0f * x));
-          const float dsw = x2 * (-30.0f + x * (60.0f - 30.0f * x)) * inv_w;
-          f_lj = f_lj * sw - e_lj * dsw * inv_r;
-          e_lj = e_lj * sw;
+          const int ct = ci4.x >= 0 ? ci4.x : 0;  // a real atom has a type
+          float a = __ldg(arow + ct);
+          float b = __ldg(arow + T + ct);
+          if (groups) {
+            const float allowed = __ldg(grow + ci4.y);
+            a = a * allowed;
+            b = b * allowed;
+          }
+          const float qq = qrow * c.w;
+          const float r2s = fmaxf(r2, 1e-10f);
+          const float inv_r = rsqrtf(r2s);
+          const float inv_r2 = inv_r * inv_r;
+          const float r = r2s * inv_r;
+          float erfc_br, gauss;
+          coulomb(p, r, &erfc_br, &gauss);
+          const float inv_r2_lj = 1.0f / fmaxf(r2, 1e-6f);
+          const float inv_r6 = inv_r2_lj * inv_r2_lj * inv_r2_lj;
+          const float inv_r12 = inv_r6 * inv_r6;
+          float e_lj = a * a * inv_r12 - b * inv_r6;
+          float f_lj =
+              (12.0f * a * a * inv_r12 - 6.0f * b * inv_r6) * inv_r2_lj;
+          if (p.r_switch > 0.f) {
+            const float x = fminf(fmaxf((r - p.r_switch) * inv_w, 0.f), 1.f);
+            const float x2 = x * x;
+            const float sw = 1.0f + x * x2 * (-10.0f + x * (15.0f - 6.0f * x));
+            const float dsw = x2 * (-30.0f + x * (60.0f - 30.0f * x)) * inv_w;
+            f_lj = f_lj * sw - e_lj * dsw * inv_r;
+            e_lj = e_lj * sw;
+          }
+          const float e_c = qq * erfc_br * inv_r;
+          const float f_c = qq * (erfc_br * inv_r + gauss) * inv_r2;
+          const float f_s = in_range ? f_lj + f_c : 0.f;
+          fx += f_s * dx;
+          fy += f_s * dy;
+          fz += f_s * dz;
+          elj += in_range ? e_lj : 0.f;
+          ecoul += in_range ? e_c : 0.f;
         }
-        const float e_c = qq * erfc_br * inv_r;
-        const float f_c = qq * (erfc_br * inv_r + gauss) * inv_r2;
-        const float f_s = f_lj + f_c;
-        fx += f_s * dx;
-        fy += f_s * dy;
-        fz += f_s * dz;
-        elj += e_lj;
-        ecoul += e_c;
-      } else {
-        const float erf_inv_r = (1.0f - erfc_br) * inv_r;
-        const float f_x = -qq * (erf_inv_r - gauss) * inv_r2;
-        fx += f_x * dx;
-        fy += f_x * dy;
-        fz += f_x * dz;
-        ecorr += -qq * erf_inv_r;
       }
     }
   }
-  if (has_row) {
-    float* out = p.fout + (size_t)row * 8;
-    out[0] = fx;
-    out[1] = fy;
-    out[2] = fz;
-    out[3] = elj;
-    out[4] = ecoul;
-    out[5] = ecorr;
-    out[6] = 0.f;
-    out[7] = 0.f;
+
+  // 3. the warps' partials in warp order, then the excluded pairs
+  float* part = s_part + warp * kParts * 32;
+  part[lane] = fx;
+  part[32 + lane] = fy;
+  part[64 + lane] = fz;
+  part[96 + lane] = elj;
+  part[128 + lane] = ecoul;
+  if (lane == 0) s_ev[warp] = n_eval;
+  __syncthreads();
+  if (warp != 0) return;
+  fx = fy = fz = elj = ecoul = 0.f;
+  for (int w = 0; w < S; ++w) {
+    const float* pw = s_part + w * kParts * 32;
+    fx += pw[lane];
+    fy += pw[32 + lane];
+    fz += pw[64 + lane];
+    elj += pw[96 + lane];
+    ecoul += pw[128 + lane];
   }
+  if (lane == 0) {
+    long long total = 0;
+    for (int w = 0; w < S; ++w) total += s_ev[w];
+    p.evals[rc] = total;
+  }
+  if (!row_real) return;
+  float ecorr = 0.f;
+  for (int d = -kMaxExcl; d <= kMaxExcl; ++d) {
+    const int j = oid_r + d;
+    if (d == 0 || j < 0 || j >= p.n) continue;
+    const unsigned lower = d > 0 ? bits_r : (unsigned)p.bits[j];
+    if (((lower >> (d > 0 ? d : -d)) & 1u) == 0u) continue;
+    const float dx = min_image(px - p.pos[3 * j], L[0], iL[0]);
+    const float dy = min_image(py - p.pos[3 * j + 1], L[1], iL[1]);
+    const float dz = min_image(pz - p.pos[3 * j + 2], L[2], iL[2]);
+    const float r2 = dx * dx + dy * dy + dz * dz;
+    const float qq = qrow * p.q[j];
+    const float r2s = fmaxf(r2, 1e-10f);
+    const float inv_r = rsqrtf(r2s);
+    const float inv_r2 = inv_r * inv_r;
+    float erfc_br, gauss;
+    coulomb(p, r2s * inv_r, &erfc_br, &gauss);
+    const float erf_inv_r = (1.0f - erfc_br) * inv_r;
+    const float f_x = -qq * (erf_inv_r - gauss) * inv_r2;
+    fx += f_x * dx;
+    fy += f_x * dy;
+    fz += f_x * dz;
+    ecorr += -qq * erf_inv_r;
+  }
+  float4* o = reinterpret_cast<float4*>(p.fout + (size_t)oid_r * 8);
+  o[0] = make_float4(fx, fy, fz, elj);
+  o[1] = make_float4(ecoul, ecorr, 0.f, 0.f);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the sweep on `stream`; returns cudaGetLastError() of the launch
-// (0 on success).
+// Launches the sweep on `stream` over a sorted layout of n_c chunks;
+// returns cudaGetLastError() of the launch (0 on success).
 int rect_pair_launch(const float* pos, const float* q, const float* ab,
                      int ab_w, int t_dim, const int* ctype, const int* cgroup,
                      const float* grows, int g_dim, const int* bits,
-                     const float* box, int n_pad, int n, float beta,
-                     float rc2, float r_cutoff, float r_switch,
-                     float gauss_pref, float* fout, void* stream) {
-  if (n_pad < 0 || n < 0 || n > n_pad || t_dim < 1 || ab_w < 2 * t_dim)
+                     const float* box, const int* oid, const float* cbox,
+                     int n_c, int n_pad, int n, int splits, float beta,
+                     float rc2, float skip_r2, float r_cutoff, float r_switch,
+                     float gauss_pref, float* fout, long long* evals,
+                     void* stream) {
+  if (n_pad < 0 || n < 0 || n > n_pad || t_dim < 1 || ab_w < 2 * t_dim ||
+      n_c != (n + 31) / 32 || splits < 1 || splits > kMaxSplits)
     return (int)cudaErrorInvalidValue;
   if (n_pad == 0) return 0;
   Params p;
@@ -230,19 +365,31 @@ int rect_pair_launch(const float* pos, const float* q, const float* ab,
   p.grows = grows;
   p.bits = bits;
   p.box = box;
+  p.oid = oid;
+  p.cbox = reinterpret_cast<const float4*>(cbox);
   p.fout = fout;
+  p.evals = evals;
   p.ab_w = ab_w;
   p.t_dim = t_dim;
   p.g_dim = g_dim;
   p.n_pad = n_pad;
   p.n = n;
+  p.n_c = n_c;
+  p.splits = splits;
   p.beta = beta;
   p.rc2 = rc2;
+  p.skip_r2 = skip_r2;
   p.r_cutoff = r_cutoff;
   p.r_switch = r_switch;
   p.gauss_pref = gauss_pref;
-  const int blocks = (n_pad + kRows - 1) / kRows;
-  rect_pair_kernel<<<blocks, kRows, 0, (cudaStream_t)stream>>>(p);
+  const int smem = smem_bytes(splits, (n_c + 31) / 32);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        rect_pair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int blocks = n_c > 0 ? n_c : 1;
+  rect_pair_kernel<<<blocks, splits * 32, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 

@@ -159,15 +159,12 @@ def _morton_key(pos, box, n_pad):
     n = pos.shape[0]
     w = pos - box * torch.floor(pos / box)
     cell = torch.clamp((w / box * 64.0).to(torch.int32), 0, 63)
-
-    def spread(x):
-        out = torch.zeros_like(x)
-        for b in range(6):
-            out = out | (((x >> b) & 1) << (3 * b))
-        return out
-
-    key = (spread(cell[:, 0]) | (spread(cell[:, 1]) << 1)
-           | (spread(cell[:, 2]) << 2))
+    # bit b of each axis's cell to bit 3b, the three axes at once (the
+    # magic-number interleave, exact for cells below 256)
+    s = (cell | (cell << 8)) & 0x0300F00F
+    s = (s | (s << 4)) & 0x030C30C3
+    s = (s | (s << 2)) & 0x09249249
+    key = s[:, 0] | (s[:, 1] << 1) | (s[:, 2] << 2)
     return torch.cat([key, torch.full((n_pad - n,), 1 << 20,
                                       dtype=torch.int32, device=pos.device)])
 

@@ -8,9 +8,12 @@ layout the evaluator builds, at tile sizes 32 to 768, and in its row-sharded
 form; B4/B5
 (csrc/ewald_fused.cu) forward, backward and through autograd, B4 also
 with its nz groups cut over grid.z (a tall cell's kmax[2] of 97); B3
-(csrc/rect_pair.cu) at two tile shapes with and without interaction groups;
-B6-B8 (csrc/gather.cu) bitwise against their plain versions and against
-torch.index_select.  A CUDA
+(csrc/rect_pair.cu) at two tile shapes with and without interaction groups,
+with excluded pairs beyond the cutoff, in a tall box, on positions moved by
+whole box lengths and at n % 32 != 0, its evaluations against the torch
+model of its skips; B6-B8 (csrc/gather.cu) bitwise against their plain
+versions and against torch.index_select, B7 also with indices out of range,
+m % 4 != 0 and unaligned indices.  A CUDA
 kernel has no CPU mode, so these tests skip on a machine without a card;
 chip_smoke.py runs the same comparisons at the main path's shapes.
 
@@ -19,6 +22,9 @@ multiply-adds, so a pair kernel and its plain version agree to float32
 rounding; the bounds are the JAX package's pair-sweep tolerances
 (tests/test_pallas.py:105-107, 179-182, 397-400) and fused-reciprocal
 tolerances (tests/test_ewald_fused.py:36, 52-53)."""
+import importlib.util
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -30,6 +36,20 @@ from openmm_velocityverlet_tpu_torch.tools import exp_gather_kernel as gtool
 from openmm_velocityverlet_tpu_torch.units import ONE_4PI_EPS0
 
 pytestmark = pytest.mark.cuda
+
+
+def _sibling(name):
+    """A test module beside this one, loaded by path: on the card's machine
+    another installed package answers to ``tests``."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           name + ".py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+rect_cull = _sibling("test_torch_rect_cull")
 
 BETA, RC = 2.2, 1.2
 
@@ -537,14 +557,35 @@ def _rect_setup(dev, blk, groups, r_switch=0.0):
     return args, kw
 
 
-@pytest.mark.parametrize("tm,tn", [(128, 128), (256, 512)])
-@pytest.mark.parametrize("groups,r_switch", [(False, 0.0), (True, 0.9)])
-def test_rect_kernel_matches_plain(cuda, tm, tn, groups, r_switch):
-    args, kw = _rect_setup(cuda, max(tm, tn), groups, r_switch)
+@pytest.mark.parametrize("system,tm,tn,groups,r_switch", [
+    ("grid", 128, 128, False, 0.0), ("grid", 256, 512, False, 0.0),
+    ("grid", 128, 128, True, 0.9), ("grid", 256, 512, True, 0.9),
+    ("stretched_exclusions", 128, 128, False, 0.0),
+    ("tall_box", 128, 128, False, 0.0), ("unwrapped", 256, 512, False, 0.0),
+    ("n_not_multiple_of_32", 128, 128, True, 0.9)])
+def test_rect_kernel_matches_plain(cuda, system, tm, tn, groups, r_switch):
+    """B3 against its plain version: the grid system at two tile shapes,
+    with and without groups and the switch, and the systems of
+    tests/test_torch_rect_cull.py (excluded pairs beyond the cutoff, a tall
+    box, positions moved by whole box lengths, n % 32 != 0); bitwise over
+    runs, zero pad rows, and fewer evaluations than the first design's
+    n_pad^2, as the torch model of its skips counts them."""
+    if system == "grid":
+        args, kw = _rect_setup(cuda, max(tm, tn), groups, r_switch)
+    else:
+        dims, spacing, drop, opts = rect_cull.CASES[system]
+        args, kw = rect_cull.rect_system(dims, spacing, drop, **opts,
+                                         blk=max(tm, tn), device=cuda)
     assert args[0].shape[0] > kw["n"]
     before = pair_rect.rect_pair.launches
     out = pair_rect.rect_pair(*args, **kw)
     assert pair_rect.rect_pair.launches == before + 1
+    evals = int(pair_rect.rect_pair.evaluations.sum())
+    model = pair_rect.culled_evaluations(
+        pair_rect.rect_layout(args[0], args[7], kw["n"]), args[7],
+        kw["r_cutoff"])
+    assert abs(evals - model) <= 0.01 * model
+    assert evals < args[0].shape[0] ** 2
     ref = pair_rect.rect_pair_reference(*args, **kw)
     torch.cuda.synchronize()
     np.testing.assert_allclose(out[:, :3].cpu().numpy(),
@@ -588,6 +629,31 @@ def test_gather_kernels_match_plain(cuda, variant, plain, library):
     assert torch.equal(out, plain(blk, idx))
     assert torch.equal(out, library(blk, idx))
     assert torch.equal(fn(blk, idx), out)
+
+
+@pytest.mark.parametrize("m", [131072, 1001, 6])
+def test_lane_gathers_edges(cuda, m):
+    """B7 with indices out of range (zeros, where the plain version raises)
+    and m % 4 != 0, also on an index view one int past a 16-byte boundary;
+    B8 bitwise equal to its plain version on the
+    same in-range shapes."""
+    rng = np.random.default_rng(m)
+    blk = torch.as_tensor(rng.standard_normal((8, gtool.BLK), np.float32),
+                          device=cuda)
+    raw = rng.integers(-50, gtool.BLK + 50, (1, m + 1)).astype(np.int32)
+    view = torch.as_tensor(raw, device=cuda)[:, 1:]
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    for idx in (torch.as_tensor(raw[:, :m], device=cuda), view):
+        out = gtool.gather_lanes(blk, idx)
+        ok = (idx[0] >= 0) & (idx[0] < gtool.BLK)
+        ref = torch.where(ok[None, :], blk[:, torch.clamp(
+            idx[0], 0, gtool.BLK - 1).long()], torch.zeros((), device=cuda))
+        assert torch.equal(out, ref)
+        inr = torch.clamp(idx, 0, gtool.BLK - 1)
+        assert torch.equal(gtool.gather_lanes(blk, inr),
+                           gtool.gather_lanes_reference(blk, inr))
+        assert torch.equal(gtool.gather_lanes_tiled(blk, idx),
+                           gtool.gather_lanes_tiled_reference(blk, idx))
 
 
 def test_gather_kernels_reject_bad_input(cuda):
