@@ -27,8 +27,8 @@ Phases:
      rectangular sweep) through its path, direct_space_tiled(symmetric=
      False), and against B1's sweep of the same positions, with its pair
      evaluations per pair within the cutoff (at most B3_MAX_EVALS) beside
-     the torch model of its skips, and its device time on a pre-sorted
-     layout at 4, 8 and 16 warps a row chunk; B6-B8 (gathers) through
+     the torch model of its skips, and the device time of its kernel
+     alone and of the wrapper with its sort; B6-B8 (gathers) through
      their path, the gather tool's main(), then bitwise against their
      plain versions and torch.index_select, timed on the device
      (torch.profiler, else a CUDA graph of 50 calls between two events)
@@ -150,12 +150,8 @@ B4_OPS, B5_OPS = 8, 12
 RECT_OPS = 73
 # B3's ordered pair evaluations for each pair within the cutoff at most
 # (the full sweep of its first design made 268 at 19,500 atoms; a
-# both-sided sweep makes at least 2), and that design's time in ms (PERF.md's
-# kernel table, NVIDIA H100 80GB HBM3, 700.00 W); B7's first design's device
-# time in the same run
+# both-sided sweep makes at least 2)
 B3_MAX_EVALS = 24
-B3_EARLIER_MS = 3.1309
-B7_EARLIER_DEVICE_MS = 0.0055
 # path 4: the Langevin group's kinetic temperature in the frame of the
 # group's own drift (the E-field pushes the other molecules along z, which
 # drag the Langevin group into a steady drift), averaged over steps 500 to
@@ -931,40 +927,39 @@ def b3_phase(ctx1, system, pos):
     if evals > B3_MAX_EVALS * pairs:
         raise AssertionError(f"B3 made {evals / pairs:.2f} evaluations a "
                              f"cutoff pair (at most {B3_MAX_EVALS})")
-    # the kernel alone on a layout sorted beforehand (graph-capturable: no
-    # host read), the wrapper with its sort, and the warps a row chunk
+    # the kernel alone (the profiler's time of its kernel in the wrapper's
+    # calls), and the wrapper with its sort (graph-capturable: no host read)
+    dev = device_ms(lambda: pr.rect_pair(*args, **kw), graph=True,
+                    kernel="rect_pair_kernel")
+    measure = device_ms.measure
     wrap_dev = device_ms(lambda: pr.rect_pair(*args, **kw), graph=True)
     wrap_measure = device_ms.measure
-    split_ms = {s: device_ms(lambda: pr.rect_pair_sorted(
-        lay, *args, splits=s, **kw), graph=True) for s in (4, 8, 16)}
-    dev = split_ms[pr.SPLITS]
-    measure = device_ms.measure
     print(f"[kernel] B3: device time of the kernel {dev:.5f} ms "
-          f"({measure}; {pr.SPLITS} warps a row chunk), "
-          f"{100 * b_ms / dev:.2f}% of the bound; warps a row chunk "
-          f"{ {s: round(t, 5) for s, t in sorted(split_ms.items())} }; the "
-          f"wrapper with its sort {wrap_dev:.5f} ms device ({wrap_measure}), "
-          f"{ms:.4f} ms by events around one call (earlier design "
-          f"{B3_EARLIER_MS} ms)")
+          f"({measure}), {100 * b_ms / dev:.2f}% of the bound; the wrapper "
+          f"with its sort {wrap_dev:.5f} ms device ({wrap_measure}), "
+          f"{ms:.4f} ms by events around one call")
     return dict(launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, device_ms=dev,
                 device_measure=measure, wrapper_device_ms=wrap_dev,
-                split_device_ms=split_ms, evaluations=evals,
+                evaluations=evals,
                 model_evaluations=model, cutoff_pairs=pairs,
                 evals_per_cutoff_pair=evals / pairs)
 
 
-def profiled_device_us(prof):
+def profiled_device_us(prof, kernel=None):
     """(device microseconds, device events) of a finished torch.profiler
-    run: its CUDA kernel time.  The time is 0 where the profiler's device
+    run: its CUDA kernel time, of the kernels whose name holds ``kernel``
+    only where that is given.  The time is 0 where the profiler's device
     tracing recorded nothing, as it does in some sandboxed machines."""
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
+              and (kernel is None or kernel in e.key)]
     return sum(e.self_device_time_total for e in events), events
 
 
-def device_ms(fn, calls=50, graph=False):
+def device_ms(fn, calls=50, graph=False, kernel=None, profiler=True):
     """Device time of one call: the CUDA kernel time torch.profiler records
-    over ``calls`` calls (after a warm-up), divided by ``calls``.  For
+    over ``calls`` calls (after a warm-up), divided by ``calls``; with
+    ``kernel``, that of the kernels whose name holds it only.  For
     kernels of a few microseconds, where CUDA events around one call would
     time the host's launch gap.  Where the profiler records no device time
     (tried twice), the time is taken with one pair of CUDA events around
@@ -972,22 +967,26 @@ def device_ms(fn, calls=50, graph=False):
     no synchronisation) as one CUDA graph of the ``calls`` calls replayed
     between the events, which leaves out the host's launch gaps; else
     eagerly, which includes them, an upper limit of the device time.
+    Those events time the whole call, ``kernel`` or not.  Without
+    ``profiler`` the events take the time at once.
     ``device_ms.measure`` names the measure of the last time returned:
-    "profiler", "graph events" or "eager events"."""
+    "profiler", "graph events" or "eager events", with "(the whole call)"
+    where ``kernel`` could not be kept apart."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):
+    for _ in range(2 if profiler else 0):
         with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        us = profiled_device_us(prof)[0]
+        us = profiled_device_us(prof, kernel)[0]
         if us > 0:
             device_ms.measure = "profiler"
             return us / 1e3 / calls
-    if not device_ms.warned:
+    whole = "" if kernel is None else " (the whole call)"
+    if profiler and not device_ms.warned:
         device_ms.warned = True
         print("[timing] torch.profiler recorded no device time: the device "
               "times of this run are CUDA-event times around a batch of "
@@ -1015,14 +1014,14 @@ def device_ms(fn, calls=50, graph=False):
             g.replay()
             b.record()
             b.synchronize()
-            device_ms.measure = "graph events"
+            device_ms.measure = "graph events" + whole
             return a.elapsed_time(b) / calls
     a.record()
     for _ in range(calls):
         fn()
     b.record()
     b.synchronize()
-    device_ms.measure = "eager events"
+    device_ms.measure = "eager events" + whole
     return a.elapsed_time(b) / calls
 
 
@@ -1065,10 +1064,6 @@ def gather_phase():
             raise AssertionError(f"{key}: the gather kernel is not bitwise "
                                  f"equal to its plain version, the library "
                                  f"call and itself")
-        ms = device_ms(lambda: fn(blk, idx), graph=True)
-        measure = device_ms.measure
-        plain_ms = device_ms(lambda: plain(blk, idx), graph=True)
-        library_ms = device_ms(lambda: library(blk, idx), graph=True)
         # of the block, the function reads only the rows (B6) or lanes (B7,
         # B8: idx % 128) that this run's indices name
         used = torch.unique(idx % 128 if key == "B8" else idx).numel()
@@ -1076,6 +1071,23 @@ def gather_phase():
             * blk.element_size()
         n_bytes = blk_bytes + nbytes(idx, out)
         b_ms, b_by = bound(0, n_bytes)
+
+        def timed(call, what):
+            """Device time of one call; a time below the byte bound (the
+            profiler lost kernel records) is taken again by CUDA-graph
+            events."""
+            t = device_ms(call, graph=True)
+            if t < b_ms:
+                print(f"[timing] {key} {what}: {t:.5f} ms by the "
+                      f"{device_ms.measure}, below the bound {b_ms:.5f} ms; "
+                      f"timed again by CUDA-graph events")
+                t = device_ms(call, graph=True, profiler=False)
+            return t
+
+        ms = timed(lambda: fn(blk, idx), "kernel")
+        measure = device_ms.measure
+        plain_ms = timed(lambda: plain(blk, idx), "plain")
+        library_ms = timed(lambda: library(blk, idx), "library")
         print(f"[kernel] {key} ({fn.__name__}): bitwise equal to its plain "
               f"version, torch.index_select and itself over 3 runs; device "
               f"time ({measure}) kernel {ms:.5f} ms, plain {plain_ms:.5f}, "
@@ -1095,9 +1107,7 @@ def gather_phase():
           f"(<= {2 * b7['bound_ms']:.5f} ms) "
           f"{'met' if b7['ms'] <= 2 * b7['bound_ms'] else 'missed'}, no "
           f"slower than index_select ({b7['library_ms']:.5f} ms) "
-          f"{'met' if b7['ms'] <= b7['library_ms'] else 'missed'}; the "
-          f"first design read {B7_EARLIER_DEVICE_MS} ms")
-    b7["earlier_device_ms"] = B7_EARLIER_DEVICE_MS
+          f"{'met' if b7['ms'] <= b7['library_ms'] else 'missed'}")
     return res
 
 
@@ -2669,12 +2679,10 @@ def main():
          "library_ms_why": "no single PyTorch call computes the sweep",
          "device_ms": b3["device_ms"], "device_measure": b3["device_measure"],
          "wrapper_device_ms": b3["wrapper_device_ms"],
-         "split_device_ms": b3["split_device_ms"],
          "evaluations": b3["evaluations"],
          "model_evaluations": b3["model_evaluations"],
          "cutoff_pairs": b3["cutoff_pairs"],
-         "evals_per_cutoff_pair": b3["evals_per_cutoff_pair"],
-         "earlier_ms": B3_EARLIER_MS}]
+         "evals_per_cutoff_pair": b3["evals_per_cutoff_pair"]}]
         + [{"name": g["name"], "route": "cuda", "source": src + "gather.cu",
             "replaces": "tools/exp_gather_kernel.py:" + line,
             "launches": g["launches"], "max_abs_err": g["max_abs_err"],
@@ -2682,9 +2690,7 @@ def main():
             "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
             "library_ms": g["library_ms"],
             "device_measure": g["device_measure"],
-            "tool_us_per_call": g["tool_us_per_call"],
-            **({"earlier_device_ms": g["earlier_device_ms"]}
-               if "earlier_device_ms" in g else {})}
+            "tool_us_per_call": g["tool_us_per_call"]}
            for g, line in ((gat["B6"], "39"), (gat["B7"], "59"),
                            (gat["B8"], "80"))]}))
     print(card)

@@ -25,10 +25,10 @@
 //     one block of 256 threads for each 256 columns.  The first design
 //     staged the whole 32 KB table in shared memory in each of up to 264
 //     blocks behind a __syncthreads(): 8.4 MB of L2 reads for 4.75 MB of
-//     useful traffic, 26% of the bound.  Four columns a thread (16-byte
-//     index loads and stores), one wave of the card, and staged variants
-//     with fewer blocks or one row a block each measured slower than this
-//     on the H100.
+//     useful traffic, 26% of the bound.  That design and one of four
+//     columns a thread (16-byte index loads and stores, one wave of the
+//     card) both measure slower than this on the H100
+//     (tools/lane_gather_designs.py times the three side by side).
 //   * B8: the block's first 128 columns (4 KB) are staged in shared memory
 //     by each of at most 264 blocks, which walk the output columns with a
 //     grid stride; a thread reads an index once and writes its 8 values,

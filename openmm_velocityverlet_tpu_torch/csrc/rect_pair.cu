@@ -39,8 +39,8 @@
 //     chunk), `cbox` each chunk's bounding box (centre, half extent grown
 //     by 1e-3 nm).  Pads never enter a chunk.  The pair arithmetic reads
 //     the original arrays through `oid`, on the positions as given.
-//   * One block a row chunk, `splits` warps (ops/pair_rect.py:SPLITS, 16:
-//     at 19,500 atoms 610 blocks of 512 threads), each warp holding the
+//   * One block a row chunk, kWarps = 16 warps (at 19,500 atoms 610 blocks
+//     of 512 threads; 4 and 8 warps measured slower), each warp holding the
 //     32 row atoms one a lane.  The block first tests its box against every
 //     column chunk's box (the periodic gap between the two boxes against
 //     the cutoff, 32 chunks a ballot; (n/32)^2 tests in all, no list, no
@@ -78,7 +78,7 @@
 namespace {
 
 constexpr int kBatch = 4;       // columns a round of the pair loop
-constexpr int kMaxSplits = 16;  // warps a block at most
+constexpr int kWarps = 16;      // warps a block, all on one row chunk
 constexpr int kParts = 5;       // fx, fy, fz, e_lj, e_coul
 constexpr int kMaxExcl = 31;    // MAX_EXCL_OFFSET
 constexpr float kOne4PiEps0 = 138.935456f;
@@ -97,7 +97,7 @@ struct Params {
   const float4* cbox;  // (n_c, 2): chunk box centre, half extent
   float* fout;         // (n_pad, 8)
   long long* evals;    // (n_c,)
-  int ab_w, t_dim, g_dim, n_pad, n, n_c, splits;
+  int ab_w, t_dim, g_dim, n_pad, n, n_c;
   float beta, rc2, skip_r2, r_cutoff, r_switch, gauss_pref;
 };
 
@@ -131,23 +131,25 @@ __device__ __forceinline__ float gap2(float ux, float uy, float uz, float hx,
   return gx * gx + gy * gy + gz * gz;
 }
 
-// Bytes of dynamic shared memory: per warp 32 column atoms as float4
-// (x, y, z, q) and int4 (type, group, mask, original index) and its row
-// partials; the block's kept-chunk bitmap and evaluation counts.
-__host__ __device__ inline int smem_bytes(int splits, int n_words) {
-  return splits * (32 * 32 + kParts * 32 * 4 + 4) + n_words * 4;
-}
+// Shared memory: per warp 32 column atoms as float4 (x, y, z, q) and int4
+// (type, group, mask, original index), its row partials and evaluation
+// count; the block's kept-chunk bitmap, one word for 32 column chunks, is
+// dynamic (n_c / 32 words).
+constexpr int kStaticSmem =
+    kWarps * (32 * (int)sizeof(float4) + 32 * (int)sizeof(int4) +
+              kParts * 32 * (int)sizeof(float) + (int)sizeof(unsigned));
 
-__global__ void __launch_bounds__(kMaxSplits * 32) rect_pair_kernel(Params p) {
-  extern __shared__ float4 smem[];
-  const int S = p.splits;
+__global__ void __launch_bounds__(kWarps * 32) rect_pair_kernel(Params p) {
+  __shared__ float4 s_col[kWarps][32];
+  __shared__ int4 s_idx[kWarps][32];
+  __shared__ float s_part[kWarps * kParts * 32];
+  __shared__ unsigned s_ev[kWarps];
+  extern __shared__ unsigned s_mask[];
+  constexpr int S = kWarps;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  float4* s_c = smem + warp * 64;
-  int4* s_i = reinterpret_cast<int4*>(smem + warp * 64 + 32);
-  float* s_part = reinterpret_cast<float*>(smem + S * 64);
-  unsigned* s_ev = reinterpret_cast<unsigned*>(s_part + S * kParts * 32);
-  unsigned* s_mask = s_ev + S;
+  float4* s_c = s_col[warp];
+  int4* s_i = s_idx[warp];
 
   // rows n..n_pad: zeros
   for (int z = p.n + blockIdx.x * blockDim.x + threadIdx.x; z < p.n_pad;
@@ -348,12 +350,12 @@ int rect_pair_launch(const float* pos, const float* q, const float* ab,
                      int ab_w, int t_dim, const int* ctype, const int* cgroup,
                      const float* grows, int g_dim, const int* bits,
                      const float* box, const int* oid, const float* cbox,
-                     int n_c, int n_pad, int n, int splits, float beta,
+                     int n_c, int n_pad, int n, float beta,
                      float rc2, float skip_r2, float r_cutoff, float r_switch,
                      float gauss_pref, float* fout, long long* evals,
                      void* stream) {
   if (n_pad < 0 || n < 0 || n > n_pad || t_dim < 1 || ab_w < 2 * t_dim ||
-      n_c != (n + 31) / 32 || splits < 1 || splits > kMaxSplits)
+      n_c != (n + 31) / 32)
     return (int)cudaErrorInvalidValue;
   if (n_pad == 0) return 0;
   Params p;
@@ -375,21 +377,20 @@ int rect_pair_launch(const float* pos, const float* q, const float* ab,
   p.n_pad = n_pad;
   p.n = n;
   p.n_c = n_c;
-  p.splits = splits;
   p.beta = beta;
   p.rc2 = rc2;
   p.skip_r2 = skip_r2;
   p.r_cutoff = r_cutoff;
   p.r_switch = r_switch;
   p.gauss_pref = gauss_pref;
-  const int smem = smem_bytes(splits, (n_c + 31) / 32);
-  if (smem > 48 * 1024) {
+  const int smem = ((n_c + 31) / 32) * (int)sizeof(unsigned);
+  if (kStaticSmem + smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         rect_pair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
   const int blocks = n_c > 0 ? n_c : 1;
-  rect_pair_kernel<<<blocks, splits * 32, smem, (cudaStream_t)stream>>>(p);
+  rect_pair_kernel<<<blocks, kWarps * 32, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 

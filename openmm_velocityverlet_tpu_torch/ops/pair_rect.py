@@ -43,7 +43,6 @@ from .pair_tri import band_statics
 CHUNK = 32          # atoms a chunk: one warp's rows or columns
 BOX_SLACK = 1e-3    # nm added to a chunk box's half extent (float32 rounding)
 BATCH = 4           # columns a round of the kernel's pair loop
-SPLITS = 16         # warps that share one row chunk's column chunks
 
 
 def _pair_terms(dx, dy, dz, r2, qq, a, b, *, beta, r_cutoff, r_switch,
@@ -115,28 +114,66 @@ def rect_pair_reference(pos, q, ab, bits, ljt, grp, grows, box, *, n, t_dim,
     n_pad = pos.shape[0]
     sc = _kernel_scalars(beta, r_cutoff)
     fout = torch.zeros((n_pad, 8), dtype=torch.float32, device=dev)
-    cols = torch.arange(n_pad, device=dev)[None, :]
-    ct = ljt.to(torch.int64)[None, :]
-    g64 = grp.to(torch.int64)[None, :]
+    cols = torch.arange(n_pad, device=dev)
+    ct = ljt.to(torch.int64)
+    colok = (ct >= 0)[None, :]
+    cidx = torch.clamp(ct, min=0)[None, :]
     step = max(1, _REF_BATCH_PAIRS // max(n_pad, 1))
     bits64 = bits.to(torch.int64)
     for r0 in range(0, n_pad, step):
         r1 = min(r0 + step, n_pad)
         rows = torch.arange(r0, r1, device=dev)[:, None]
-        dx, dy, dz = (_min_image(pos[r0:r1, None, ax] - pos[None, :, ax],
-                                 box[ax]) for ax in range(3))
+        d = []
+        for ax in range(3):
+            L = box[ax]
+            da = pos[r0:r1, None, ax] - pos[None, :, ax]
+            d.append(da - L * torch.round(da * (1.0 / L)))
+        dx, dy, dz = d
         r2 = dx * dx + dy * dy + dz * dz
-        excl = _excluded(rows, cols, bits64)
-        alive = (cols != rows) & (rows < n) & (cols < n)
-        a, b = _lj_ab(ab, rows, ct, grows, g64, t_dim)
+        delta = cols[None, :] - rows
+        dfwd = torch.clamp(delta, 1, MAX_EXCL_OFFSET)
+        dbwd = torch.clamp(-delta, 1, MAX_EXCL_OFFSET)
+        excl = (((bits64[r0:r1, None] >> dfwd) & 1) > 0) \
+            & (delta >= 1) & (delta <= MAX_EXCL_OFFSET)
+        excl |= (((bits64[None, :] >> dbwd) & 1) > 0) \
+            & (delta <= -1) & (delta >= -MAX_EXCL_OFFSET)
+        alive = (delta != 0) & (rows < n) & (cols[None, :] < n)
+        zero = torch.zeros_like(r2)
+        idx = cidx.expand(r1 - r0, -1)
+        a = torch.where(colok, torch.gather(ab[r0:r1, :t_dim], 1, idx), zero)
+        b = torch.where(colok, torch.gather(ab[r0:r1, t_dim:2 * t_dim], 1,
+                                            idx), zero)
+        if grows is not None:
+            allowed = torch.gather(grows[r0:r1], 1, grp.to(torch.int64)[
+                None, :].expand(r1 - r0, -1))
+            a = a * allowed
+            b = b * allowed
         qq = ONE_4PI_EPS0 * q[r0:r1, None] * q[None, :]
         in_range = alive & ~excl & (r2 < sc["rc2"])
         corr = alive & excl
-        f_in, e_lj, e_c, f_x, e_x = _pair_terms(
-            dx, dy, dz, r2, qq, a, b, beta=beta, r_cutoff=r_cutoff,
-            r_switch=r_switch, gauss_pref=sc["gauss_pref"])
-        zero = torch.zeros_like(r2)
-        f_s = torch.where(in_range, f_in, zero) + torch.where(corr, f_x, zero)
+        r2s = torch.clamp(r2, min=1e-10)
+        inv_r = torch.rsqrt(r2s)
+        inv_r2 = inv_r * inv_r
+        r = r2s * inv_r
+        inv_r2_lj = 1.0 / torch.clamp(r2, min=1e-6)
+        inv_r6 = inv_r2_lj * inv_r2_lj * inv_r2_lj
+        inv_r12 = inv_r6 * inv_r6
+        e_lj = a * a * inv_r12 - b * inv_r6
+        f_lj = (12.0 * a * a * inv_r12 - 6.0 * b * inv_r6) * inv_r2_lj
+        e_lj, f_lj = lj_switch(e_lj, f_lj, r, inv_r, r_switch, r_cutoff)
+        br = beta * r
+        expm = torch.exp(-br * br)
+        t = 1.0 / (1.0 + 0.3275911 * br)
+        erfc_br = (t * (0.254829592 + t * (-0.284496736 + t * (1.421413741
+                   + t * (-1.453152027 + t * 1.061405429))))) * expm
+        gauss = sc["gauss_pref"] * expm
+        e_c = qq * erfc_br * inv_r
+        f_c = qq * (erfc_br * inv_r + gauss) * inv_r2
+        erf_inv_r = (1.0 - erfc_br) * inv_r
+        e_x = -qq * erf_inv_r
+        f_x = -qq * (erf_inv_r - gauss) * inv_r2
+        f_s = torch.where(in_range, f_lj + f_c, zero) \
+            + torch.where(corr, f_x, zero)
         fout[r0:r1, 0] = torch.sum(f_s * dx, dim=1)
         fout[r0:r1, 1] = torch.sum(f_s * dy, dim=1)
         fout[r0:r1, 2] = torch.sum(f_s * dz, dim=1)
@@ -303,8 +340,8 @@ def _launcher():
     if lib.rect_pair_launch.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.rect_pair_launch.argtypes = [
-            P, P, P, I, I, P, P, P, I, P, P, P, P, I, I, I, I, F, F, F, F,
-            F, F, P, P, P]
+            P, P, P, I, I, P, P, P, I, P, P, P, P, I, I, I, F, F, F, F, F,
+            F, P, P, P]
         lib.rect_pair_launch.restype = I
         lib.rect_pair_error_string.argtypes = [I]
         lib.rect_pair_error_string.restype = ctypes.c_char_p
@@ -320,38 +357,6 @@ def _check(t, name, dtype, shape, device):
             f"{tuple(t.shape)} on {t.device}")
 
 
-def rect_pair_sorted(layout, pos, q, ab, bits, ljt, grp, grows, box, *, n,
-                     t_dim, beta, r_cutoff, r_switch=0.0, splits=SPLITS):
-    """Launch kernel B3 on a layout from ``rect_layout`` (operands checked
-    by ``rect_pair``): one block of ``splits`` warps a row chunk.  Counts
-    the launch in ``rect_pair.launches`` and keeps the kernel's ordered
-    pair evaluations a row chunk, (n_c,) int64 on the card, in
-    ``rect_pair.evaluations``.  Returns ``fout (n_pad, 8)``."""
-    dev = pos.device
-    n_pad = pos.shape[0]
-    sc = _kernel_scalars(beta, r_cutoff)
-    fout = torch.empty((n_pad, 8), dtype=torch.float32, device=dev)
-    n_c = layout["cbox"].shape[0]
-    evals = torch.empty((n_c,), dtype=torch.int64, device=dev)
-    lib = _launcher()
-    err = lib.rect_pair_launch(
-        pos.data_ptr(), q.data_ptr(), ab.data_ptr(), ab.shape[1], t_dim,
-        ljt.data_ptr(), grp.data_ptr(),
-        None if grows is None else grows.data_ptr(),
-        0 if grows is None else grows.shape[1], bits.data_ptr(),
-        box.data_ptr(), layout["oid"].data_ptr(), layout["cbox"].data_ptr(),
-        n_c, n_pad, n, int(splits), float(beta), sc["rc2"],
-        skip_r2(r_cutoff), float(r_cutoff), float(r_switch),
-        sc["gauss_pref"], fout.data_ptr(), evals.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError("rect_pair kernel launch failed: "
-                           + lib.rect_pair_error_string(err).decode())
-    rect_pair.launches += 1
-    rect_pair.evaluations = evals
-    return fout
-
-
 def rect_pair(pos, q, ab, bits, ljt, grp, grows, box, *, n, t_dim, beta,
               r_cutoff, r_switch=0.0):
     """The rectangular sweep: returns ``fout (n_pad, 8)``.
@@ -359,9 +364,10 @@ def rect_pair(pos, q, ab, bits, ljt, grp, grows, box, *, n, t_dim, beta,
     On a CUDA tensor this sorts the real atoms into ``rect_layout`` on the
     card and launches kernel B3 (``csrc/rect_pair.cu``) on the current
     stream, with no host read; the launch counts in
-    ``rect_pair.launches``.  On a CPU tensor it runs
-    ``rect_pair_reference``.  There is no fallback: a CUDA call the kernel
-    cannot take raises."""
+    ``rect_pair.launches``, and the kernel's ordered pair evaluations a row
+    chunk, (n_c,) int64 on the card, are kept in ``rect_pair.evaluations``.
+    On a CPU tensor it runs ``rect_pair_reference``.  There is no fallback:
+    a CUDA call the kernel cannot take raises."""
     kw = dict(n=n, t_dim=t_dim, beta=beta, r_cutoff=r_cutoff,
               r_switch=r_switch)
     dev = pos.device
@@ -385,8 +391,27 @@ def rect_pair(pos, q, ab, bits, ljt, grp, grows, box, *, n, t_dim, beta,
     if grows is not None:
         _check(grows, "grows", f32, (n_pad, grows.shape[1]), dev)
     _check(box, "box", f32, (3,), dev)
-    return rect_pair_sorted(rect_layout(pos, box, n), pos, q, ab, bits, ljt,
-                            grp, grows, box, **kw)
+    layout = rect_layout(pos, box, n)
+    sc = _kernel_scalars(beta, r_cutoff)
+    fout = torch.empty((n_pad, 8), dtype=f32, device=dev)
+    n_c = layout["cbox"].shape[0]
+    evals = torch.empty((n_c,), dtype=torch.int64, device=dev)
+    lib = _launcher()
+    err = lib.rect_pair_launch(
+        pos.data_ptr(), q.data_ptr(), ab.data_ptr(), ab.shape[1], t_dim,
+        ljt.data_ptr(), grp.data_ptr(),
+        None if grows is None else grows.data_ptr(),
+        0 if grows is None else grows.shape[1], bits.data_ptr(),
+        box.data_ptr(), layout["oid"].data_ptr(), layout["cbox"].data_ptr(),
+        n_c, n_pad, n, float(beta), sc["rc2"], skip_r2(r_cutoff),
+        float(r_cutoff), float(r_switch), sc["gauss_pref"], fout.data_ptr(),
+        evals.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError("rect_pair kernel launch failed: "
+                           + lib.rect_pair_error_string(err).decode())
+    rect_pair.launches += 1
+    rect_pair.evaluations = evals
+    return fout
 
 
 rect_pair.launches = 0
