@@ -71,7 +71,16 @@ Phases:
      step(200) timed, B1 launched >= 200 times; then the route times of
      ops/pme.py's cost model on random charges in 3-12 nm boxes and the fit
      of its costs (the PME route is also timed beside the fused and matmul
-     routes at 19,500 atoms and at path 6's EDL shapes);
+     routes at 19,500 atoms and at path 6's EDL shapes); then the mesh
+     (A16, ``mesh_phase``) in path 2's configuration: a world of one under
+     NCCL beside the unsharded band Context from the same state (max
+     |dpos| within 1e-6 nm after one step and 1e-5 after three, step(100)
+     timed, B2 launched >= 100 times), then two ranks spawned on the one
+     card under gloo, gated against that unsharded run, their final
+     positions bitwise alike, each rank's B2 row shard on the step's own
+     cache against its plain version and its rows bitwise the unsharded
+     kernel's, step(100) timed with the all_reduce's CUDA-event time (two
+     ranks sharing one card: not a two-card number);
   9. path 9, the application layer (A14) through the bulk CLI (A17):
      run_bulk.simulation_from_args with run_bulk's defaults (Langevin on
      every particle, the iso barostat every 100 steps, 333 K, dt 0.001) on
@@ -109,6 +118,7 @@ package beside it.
 import functools
 import itertools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -180,6 +190,9 @@ GB_RTOL, GB_F_ATOL_REL = 2e-5, 1e-4
 # path 9: run_bulk on write_charmm_fixture(n_side=13, by_species=True),
 # 2,197 cells of 9 atoms: 19,773 atoms in a 10.4 nm box, within 1.5% of
 # bench.py's 19,500-atom headline
+# the mesh phase's trajectory gates: max |dpos| (nm) against the unsharded
+# run after 1 and 3 steps (tests/test_multichip.py:58-66)
+MESH_DPOS_1, MESH_DPOS_3 = 1e-6, 1e-5
 BULK_SIDE = 13
 # run_bulk's --min calls minimize_energy(100), up to 500 iterations; path
 # 9 stops it after 50
@@ -1881,6 +1894,250 @@ def recip_fit():
     return dict(rates=rates, points=pts)
 
 
+def mesh_device():
+    """The one card every rank of the mesh phase runs on."""
+    return "cuda:0" if DEVICE == "cuda" else DEVICE
+
+
+def mesh_context(mesh, pair_ts=0):
+    """Path 2's configuration (drude_water 19.5k, fold_exc14, TGNH, exact-k
+    Ewald) on ``mesh`` (None: unsharded), velocities drawn from seed
+    12345."""
+    from openmm_velocityverlet_tpu_torch import Context, VVIntegrator
+    from openmm_velocityverlet_tpu_torch.models.drude_water import \
+        drude_water_box
+    system, pos, box = drude_water_box(N_MOL, r_cutoff=R_CUTOFF)
+    integ = VVIntegrator(333, 10, 1, 40, 0.001)
+    integ.setMaxDrudeDistance(0.02)
+    ctx = Context(system, integ, positions=pos, box=box, device=DEVICE,
+                  fold_exc14=True, pair_ts=pair_ts, mesh=mesh)
+    ctx.set_velocities_to_temperature(333.0)
+    return ctx
+
+
+def row_shard_check(ctx, shard_timed=True):
+    """Kernel B2's row shard of this rank on the step's own cache and
+    positions (a fresh cache, as a segment's start builds it), force-only
+    as the step calls it, against its plain version on the same rows; the
+    shard's rows against the unsharded kernel's on the same layout
+    (bitwise) and its column accumulator for the caller to sum.  Returns
+    (max_abs_err, rows_bitwise, colacc, unsharded colacc, device ms,
+    measure)."""
+    import torch
+    from openmm_velocityverlet_tpu_torch.ops import pair_tri as pt
+    ev, mesh = ctx.evaluator, ctx.mesh
+    cache = ctx._fresh_cache()
+    pos = ev.place_vsites(ctx.state.pos)
+    n, n_pad, ts = pos.shape[0], cache.perm.shape[0], ev.pair_ts
+    pos2d = torch.cat([pos, torch.full((n_pad - n, 3), 1e6,
+                                       device=pos.device)])[cache.perm]
+    args = (pos2d.contiguous(), cache.q, cache.ab, cache.bits, cache.bits14,
+            cache.oid, cache.ljt, cache.grp, cache.grows, ctx.state.box)
+    sysm = ctx.system
+    kw = dict(ts=ts, t_dim=ev.pair_tables["arows"].shape[1],
+              beta=sysm.ewald_beta, r_cutoff=sysm.r_cutoff, mode="bandall",
+              band_w=ev.band_w, want_energy=False,
+              has14=bool(ev.pair_tables.get("has_exc14", False)),
+              r_switch=sysm.r_switch, n_tiles_g=-(-n // ts))
+    tiles = n_pad // ts // mesh.size
+    shard = dict(kw, row_off=mesh.rank * tiles, n_row_tiles=tiles)
+    out = pt.tri_pair(*args, cmap=cache.cmap, **shard)
+    ref = pt.tri_pair_reference(*args, **shard)
+    torch.cuda.synchronize()
+    err = pair_agreement(f"B2 row shard {mesh.rank}/{mesh.size}", out, ref,
+                         E_RTOL, cols=())
+    rows_u, col_u = pt.tri_pair(*args, cmap=cache.cmap, **kw)
+    lo = mesh.rank * tiles * ts
+    bitwise = bool(torch.equal(out[0], rows_u[lo:lo + tiles * ts]))
+    ms = measure = None
+    if shard_timed:
+        # one rank at a time: two ranks share the card
+        for r in range(mesh.size):
+            if r == mesh.rank:
+                ms = device_ms(lambda: pt.tri_pair(*args, cmap=cache.cmap,
+                                                   **shard), calls=20)
+                measure = device_ms.measure
+            mesh.barrier()
+    return err, bitwise, out[1], col_u, ms, measure
+
+
+def _mesh_rank(rank, size, store, out_dir, pair_ts):
+    """Leg B's rank: two ranks on one card under gloo (NCCL refuses two
+    ranks on one device).  Writes its numbers to ``out_dir``; any failure
+    raises, which fails the parent."""
+    import pickle
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from openmm_velocityverlet_tpu_torch.ops import pair_tri as pt
+    from openmm_velocityverlet_tpu_torch.parallel import mesh as pm
+    mesh = pm.make_mesh(size=size, device=mesh_device(), backend="gloo",
+                        init_method=store, rank=rank)
+    ctx = mesh_context(mesh, pair_ts)
+    res = {"ts": ctx.evaluator.pair_ts, "band_w": ctx.evaluator.band_w}
+    ctx.step(1)
+    res["pos1"] = ctx.get_positions()
+    ctx.step(2)
+    res["pos3"] = ctx.get_positions()
+    err, bitwise, col, col_u, ms, measure = row_shard_check(ctx)
+    mesh.all_reduce(col)
+    col_err = float((col - col_u).abs().max())
+    col_ok = bool(torch.all((col - col_u).abs()
+                            <= F_ATOL + F_RTOL * col_u.abs()))
+    res.update(err=err, rows_bitwise=bitwise, col_err=col_err,
+               col_ok=col_ok, b2_device_ms=ms, b2_measure=measure)
+    # the timed run, with CUDA events around every all_reduce
+    ctx.step(20)
+    events = []
+    plain = pm.Mesh.all_reduce
+
+    def timed(self, t):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        plain(self, t)
+        b.record()
+        events.append((a, b))
+        return t
+    pm.Mesh.all_reduce = timed
+    pt.tri_pair.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ctx.step(100)
+    torch.cuda.synchronize()
+    res["elapsed"] = time.perf_counter() - t0
+    pm.Mesh.all_reduce = plain
+    res["launches"] = pt.tri_pair.launches
+    res["allreduce_ms"] = sum(a.elapsed_time(b) for a, b in events)
+    res["allreduces"] = len(events)
+    res["rebuilds"], res["trips"] = ctx.rebuilds, ctx.coverage_rebuilds
+    res["profile"] = profile(f"mesh B rank {rank}", ctx,
+                             res["elapsed"] * 10, top=4)
+    # every rank's final positions bitwise alike: the max and min over the
+    # ranks of an exact checksum of their bits
+    bits = ctx.state.pos.contiguous().view(torch.int32).to(torch.int64)
+    check = (bits * torch.arange(1, bits.numel() + 1, device=bits.device)
+             .reshape(bits.shape)).sum().reshape(1)
+    hi, lo = check.clone(), check.clone()
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+    res["checksums"] = (int(lo), int(hi))
+    res["finite"] = bool(np.isfinite(ctx.get_positions()).all()) and all(
+        np.isfinite(v) for v in ctx.potential_energy_terms().values())
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as fh:
+        pickle.dump(res, fh)
+    dist.destroy_process_group()
+
+
+def mesh_phase(card, dt):
+    """The multi-device mesh (A16) at 19,500 atoms in path 2's
+    configuration.  Leg A: a world of one under NCCL beside the unsharded
+    band Context from the same state, 1 and 3 steps gated, then step(100)
+    timed.  Leg B: two ranks spawned on the one card under gloo, gated
+    against leg A's unsharded run, their B2 row shards on the step's own
+    cache against the plain version, and step(100) timed.  Returns the
+    numbers of the kernels line."""
+    import pickle
+    import shutil
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from openmm_velocityverlet_tpu_torch.ops import pair_tri as pt
+    from openmm_velocityverlet_tpu_torch.parallel.mesh import make_mesh
+    from openmm_velocityverlet_tpu_torch.units import ns_per_day
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "mesh")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    # leg A
+    mesh = make_mesh(size=1, device=mesh_device(),
+                     backend="nccl" if DEVICE == "cuda" else "gloo", rank=0,
+                     init_method=f"file://{out_dir}/store_a")
+    ref = mesh_context(None)
+    ctx = mesh_context(mesh, ref.evaluator.pair_ts)
+    ev = ctx.evaluator
+    print(f"[mesh A] {mesh.size} rank, {mesh.backend}, {mesh.device}: "
+          f"pair_mode {ev.pair_mode}, ts {ev.pair_ts}, band_w {ev.band_w}, "
+          f"recip {ev.recip_method}")
+    traj = {}
+    for n, tag in ((1, 1), (2, 3)):
+        ref.step(n)
+        ctx.step(n)
+        traj[tag] = (ref.get_positions(), ctx.get_positions())
+    d1, d3 = (float(np.abs(a - b).max()) for a, b in (traj[1], traj[3]))
+    bitwise = all(np.array_equal(a, b) for a, b in traj.values())
+    print(f"[mesh A] max |dpos| against the unsharded run: {d1:.3e} nm "
+          f"after 1 step, {d3:.3e} after 3; bitwise equal {bitwise}")
+    if not (d1 < MESH_DPOS_1 and d3 < MESH_DPOS_3):
+        raise AssertionError("mesh leg A: the world of one leaves the "
+                             "unsharded trajectory")
+    sps_a, _, la = drive("mesh A", ctx, 100, {"B2": pt.tri_pair}, card, dt)
+    if la["B2"] < 100:
+        raise AssertionError(f"mesh leg A: B2 launched {la['B2']} < 100")
+    check_finite("mesh A", ctx, ctx.system)
+    profile("mesh A", ctx, 1e3 / sps_a, top=4)
+    err_a, bit_a, _, _, _, _ = row_shard_check(ctx, shard_timed=False)
+    if not bit_a:
+        raise AssertionError("mesh leg A: the shard's rows differ from the "
+                             "unsharded kernel's")
+    ts = ev.pair_ts
+    del ctx, ref
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    # leg B: two ranks sharing the card
+    t0 = time.perf_counter()
+    mp.start_processes(_mesh_rank, args=(2, f"file://{out_dir}/store_b",
+                                         out_dir, ts),
+                       nprocs=2, start_method="spawn")
+    spawn_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as fh:
+            ranks.append(pickle.load(fh))
+    r0 = ranks[0]
+    e1 = float(np.abs(r0["pos1"] - traj[1][0]).max())
+    e3 = float(np.abs(r0["pos3"] - traj[3][0]).max())
+    same = r0["checksums"][0] == r0["checksums"][1]
+    launches = sum(r["launches"] for r in ranks)
+    sps = [100 / r["elapsed"] for r in ranks]
+    ar_ms = [r["allreduce_ms"] / 100 for r in ranks]
+    print(f"[mesh B] 2 ranks sharing one {card} (gloo): ts {r0['ts']}, "
+          f"band_w {r0['band_w']}; rank 0 max |dpos| against the unsharded "
+          f"run {e1:.3e} nm after 1 step, {e3:.3e} after 3; final "
+          f"positions bitwise alike on both ranks {same}")
+    for r, res in enumerate(ranks):
+        print(f"[mesh B] rank {r}: B2 row shard max_abs_err "
+              f"{res['err']:.3e}, rows bitwise the unsharded kernel's "
+              f"{res['rows_bitwise']}; summed colacc max diff "
+              f"{res['col_err']:.3e} (within F tolerances "
+              f"{res['col_ok']}); B2 shard device "
+              f"{res['b2_device_ms']:.4f} ms ({res['b2_measure']}); "
+              f"launches {res['launches']} in 100 steps; all_reduce "
+              f"{res['allreduce_ms'] / 100:.4f} ms/step over "
+              f"{res['allreduces']} calls (CUDA events); rebuilds "
+              f"{res['rebuilds']}, coverage trips {res['trips']}; device "
+              f"busy " + (f"{res['profile'][0]:.3f} ms/step, "
+                          f"{res['profile'][1]:.0f} kernels/step"
+                          if res["profile"] else "not measured"))
+    print(f"[mesh B] 2 ranks sharing one NVIDIA H100 (gloo), not a two-card "
+          f"number: {sps[0]:.2f} / {sps[1]:.2f} steps/s over step(100), "
+          f"{ns_per_day(sps[0], dt):.3f} ns/day; all_reduce "
+          f"{ar_ms[0]:.4f} / {ar_ms[1]:.4f} ms/step; one card unsharded "
+          f"(leg A's world of one) {sps_a:.2f} steps/s; spawn to exit "
+          f"{spawn_s:.1f} s")
+    ok = (e1 < MESH_DPOS_1 and e3 < MESH_DPOS_3 and same
+          and all(r["rows_bitwise"] and r["col_ok"] and r["finite"]
+                  and r["launches"] >= 100 for r in ranks))
+    if not ok:
+        raise AssertionError("mesh leg B: a gate failed (see [mesh B])")
+    return {"launches_mesh": launches,
+            "row_sharded_max_abs_err": max([err_a] + [r["err"]
+                                                      for r in ranks]),
+            "row_sharded_device_ms": [r["b2_device_ms"] for r in ranks],
+            "row_sharded_device_measure": r0["b2_measure"]}
+
+
 def write_charmm_fixture(directory, n_side=3, spacing=0.8, seed=0,
                          by_species=False):
     """A Drude PSF/PRM pair and a .gro of its start that carry NBTHOLE and
@@ -2576,6 +2833,11 @@ def main():
     stamp("recip_fit")
     fit = recip_fit()
 
+    stamp("mesh phase")
+    # the multi-device mesh (A16): a world of one under NCCL, then two
+    # ranks sharing the card under gloo
+    mesh_k = mesh_phase(card, dt)
+
     stamp("path 9")
     # path 9: the application layer through run_bulk at 19,773 atoms
     bulk = bulk_path(card, {"B1": pp.plist_pair})
@@ -2645,7 +2907,7 @@ def main():
          "energy_plain_ms": b2["energy_plain_ms"],
          "energy_device_ms": b2["energy_device_ms"],
          "tile_size": b2["tile_size"], "evaluations": b2["evaluations"],
-         "cutoff_pairs": b2["cutoff_pairs"]},
+         "cutoff_pairs": b2["cutoff_pairs"], **mesh_k},
         {"name": "ewald_structure", "route": "cuda",
          "source": src + "ewald_fused.cu",
          "replaces": ref + "ewald_pallas.py:77", "launches": l3["B4"],

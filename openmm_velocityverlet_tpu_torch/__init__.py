@@ -9,8 +9,10 @@ image-charge constant voltage with the external-force toolbox
 Monte Carlo barostat, FFT PME, NBTHOLE, CMAP and GB implicit solvent, and
 the CHARMM loaders (``models/prmfile.py``, ``psffile.py``, ``grofile.py``,
 ``replicate.py``), the application layer (``app.py``: ``Simulation``,
-the L-BFGS minimizer, checkpoints and reporters) and the workload scripts
-(``examples/run_bulk.py``, ``examples/run_edl.py``).
+the L-BFGS minimizer, checkpoints and reporters), the workload scripts
+(``examples/run_bulk.py``, ``examples/run_edl.py``), the multi-device mesh
+over ``torch.distributed`` (``parallel/mesh.py``, ``Context(mesh=...)``)
+and the closed-form term energies (``ops/bonded.py``, ``ops/drude.py``).
 Its hand-written CUDA kernels for Hopper are B1, the plist pair sweep
 (``csrc/plist_pair.cu``), B2, the upper-triangle band / full sweep
 (``csrc/tri_pair.cu``), B3, the rectangular sweep (``csrc/rect_pair.cu``),

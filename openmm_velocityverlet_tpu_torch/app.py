@@ -7,6 +7,12 @@ boundary (OpenMM's describeNextReport scheduling); each chunk is one
 it does in the JAX package.  The reporters write the same columns and
 files as the JAX package's; the DCD frame encoder is numpy and writes the
 bytes the JAX package's C encoder writes.
+
+On a mesh every rank runs the reporters (their energy queries are
+collective) but only rank 0 writes files, its own and checkpoints
+(``parallel.mesh.writes_files``); ``Simulation.step`` and
+``save_checkpoint`` end with a barrier, so what rank 0 wrote is there for
+every rank to read.  Every rank reads a checkpoint.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ import torch
 
 from .context import Context
 from .integrators import stepping
+from .parallel.mesh import writes_files
 from .system import State, state_from_numpy
 from .units import AVOGADRO, BOLTZ
 
@@ -69,6 +76,8 @@ class Simulation:
             flush = getattr(r, "flush", None)
             if flush is not None:
                 flush()
+        if self.context.mesh is not None:
+            self.context.mesh.barrier()
 
     def flush(self):
         """Join every background writer (a read-after-write barrier for
@@ -197,14 +206,17 @@ def save_checkpoint(context: Context, filename):
     arrays, the generator as ``generator.get_state().numpy()`` beside its
     device's kind, and step, time and cos_v as numbers.  The barostat's
     state (its move size and counters) is not saved, as in the JAX
-    package."""
+    package.  On a mesh rank 0 writes it and every rank waits for it."""
     st = context.state
-    data = {k: getattr(st, k).cpu().numpy() for k in _TENSOR_FIELDS}
-    data.update(generator=st.generator.get_state().numpy(),
-                generator_device=st.generator.device.type, step=st.step,
-                time=st.time, cos_v=float(st.cos_v))
-    with open(filename, "wb") as f:
-        pickle.dump({"state": data, "version": 1}, f)
+    if writes_files():
+        data = {k: getattr(st, k).cpu().numpy() for k in _TENSOR_FIELDS}
+        data.update(generator=st.generator.get_state().numpy(),
+                    generator_device=st.generator.device.type, step=st.step,
+                    time=st.time, cos_v=float(st.cos_v))
+        with open(filename, "wb") as f:
+            pickle.dump({"state": data, "version": 1}, f)
+    if context.mesh is not None:
+        context.mesh.barrier()
 
 
 def load_checkpoint(context: Context, filename):
@@ -252,7 +264,10 @@ def load_checkpoint(context: Context, filename):
 class _BaseReporter:
     def __init__(self, file, report_interval, append=False):
         self._interval = int(report_interval)
-        if hasattr(file, "write"):
+        if not writes_files():
+            self._out = open(os.devnull, "w")
+            self._own = True
+        elif hasattr(file, "write"):
             self._out = file
             self._own = False
         else:
@@ -393,11 +408,13 @@ class DrudeTemperatureReporter(_BaseReporter):
     def report(self, simulation):
         ctx = simulation.context
         sysm = ctx.system
-        masses = np.asarray(sysm.masses)
+        vel = ctx.get_velocities()
+        n = vel.shape[0]                # mesh-padding ghosts left out
+        masses = np.asarray(sysm.masses)[:n]
         if not self._initialized:
             print('#"Step"\t"T_COM"\t"T_Atom"\t"T_Drude"\t"KE_COM"\t"KE_Atom"'
                   '\t"KE_Drude"', file=self._out)
-            self.mol_id = np.asarray(sysm.particle_mol_id)
+            self.mol_id = np.asarray(sysm.particle_mol_id)[:n]
             self.mol_mass = np.asarray(sysm.mol_masses)
             self.dof_com = int(np.count_nonzero(self.mol_mass)) * 3
             self.dof_atom = int(np.sum(masses > 0)) * 3
@@ -408,7 +425,6 @@ class DrudeTemperatureReporter(_BaseReporter):
             self.dof_atom -= 3 * nd
             self.dof_drude = 3 * nd
             self._initialized = True
-        vel = ctx.get_velocities()
         mol_vel = np.zeros((len(self.mol_mass), 3))
         np.add.at(mol_vel, self.mol_id, masses[:, None] * vel)
         nonzero = self.mol_mass > 0
@@ -599,6 +615,8 @@ class DCDReporter:
         fh.flush()
 
     def report(self, simulation):
+        if not writes_files():
+            return
         ctx = simulation.context
         pos = ctx.get_positions()
         if self._fh is None:
@@ -650,5 +668,5 @@ class CheckpointReporter:
         step = simulation.current_step
         save_checkpoint(simulation.context, f"{self._file}_{step}")
         prev = f"{self._file}_{step - 3 * self._interval}"
-        if os.path.exists(prev):
+        if writes_files() and os.path.exists(prev):
             os.remove(prev)

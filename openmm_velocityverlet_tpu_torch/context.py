@@ -49,8 +49,18 @@ no longer fits the scaled box) repeats the query, or the attempt with the
 same draws, on the full list
 (``ForceEvaluator.energy_forces(full_list=True)``).
 
-What this port does not carry raises NotImplementedError at construction:
-the mesh (A16).
+On a mesh (``mesh=``, from ``parallel.mesh.make_mesh``) each rank holds
+the whole State and runs this same loop; the pair sweep is split over the
+ranks' row tiles (``ForceEvaluator``'s mesh route, one all_reduce a force
+evaluation).  As in the JAX package the system is padded with inert ghosts
+to a multiple of the mesh size (``system.pad_system``), hidden from
+``get_positions`` / ``get_velocities`` and the setters, and the mirror
+route is off.  Every decision that steers the loop comes out the same on
+every rank: the coverage flag rides in the sweep's all_reduce, the energy
+queries' host reads (the barostat's accept flag) are rank 0's, broadcast,
+and at construction, at every pair-cache rebuild and before every barostat
+attempt the State is rank 0's (``parallel.mesh.shard_carry``), so the
+ranks' caches and Langevin and barostat draws are the same.
 """
 from __future__ import annotations
 
@@ -65,7 +75,8 @@ from .integrators import barostat as baro_mod
 from .integrators import stepping
 from .integrators.vv import IntegratorData, VVIntegrator
 from .ops import constraints as cons_mod
-from .system import State, System, make_state, resolve_device
+from .parallel.mesh import shard_carry, sharded_step
+from .system import State, System, make_state, pad_system, resolve_device
 from .units import BOLTZ
 
 
@@ -97,12 +108,22 @@ class Context:
                  recip: str = "exact", mesh=None,
                  strict_pairs: bool = False, pair_kernel: str = "auto",
                  device="cuda"):
+        """On a mesh the context runs on the mesh's device, which
+        ``device`` must name in kind ("cpu" for a host mesh)."""
         if box is None:
             raise ValueError("box is required")
-        if mesh is not None:
-            raise NotImplementedError(
-                "the multi-device mesh is not ported yet (ROADMAP A16)")
+        self.mesh = mesh
+        self.n_real = system.n_atoms
         self.device = resolve_device(device)
+        if mesh is not None:
+            if self.device.type != mesh.device.type:
+                raise ValueError(f"device {device!r} is not the mesh's "
+                                 f"{mesh.device}")
+            self.device = mesh.device
+            n_pad = -(-system.n_atoms // mesh.size) * mesh.size
+            system = pad_system(system, n_pad)
+            if positions is not None:
+                positions = self._pad(positions, n_pad)
         if self.device.type == "cuda":
             # the reciprocal contraction must stay in full float32
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -111,11 +132,13 @@ class Context:
         self.data: IntegratorData = integrator.build_data(system)
         self.sort_refresh = int(sort_refresh)
         box = np.asarray(box, np.float32)
-        self.image_mirror = image_mirror(self.data, system.charges)
+        # no mirror route on a mesh, as in the JAX package
+        self.image_mirror = (image_mirror(self.data, system.charges)
+                             if mesh is None else None)
         self.evaluator = ForceEvaluator(
             system, external_forces, ewald_chunk=ewald_chunk,
             row_block=row_block, pair_ts=pair_ts, fold_exc14=fold_exc14,
-            recip=recip, box_hint=box, pos_hint=positions,
+            recip=recip, box_hint=box, pos_hint=positions, mesh=mesh,
             strict_pairs=strict_pairs, pair_kernel=pair_kernel,
             image_mirror=self.image_mirror, device=self.device)
         self.cons = cons_mod.build_constraint_data(
@@ -181,13 +204,32 @@ class Context:
         self.baro_last_scale = None
         if positions is not None:
             self.set_positions(positions)
+        self._sync()
 
     # --------------------------------------------------------- public API
+    @staticmethod
+    def _pad(arr, n):
+        """An (m, 3) user array as float32 numpy, zero rows appended up to
+        ``n`` (the mesh-padding ghosts)."""
+        if isinstance(arr, torch.Tensor):
+            arr = arr.detach().cpu()
+        arr = np.asarray(arr, np.float32)
+        return np.concatenate([arr, np.zeros((n - arr.shape[0],)
+                                             + arr.shape[1:], np.float32)])
+
     def _tensor(self, arr):
+        """A user (n_real, 3) array on the device, over the ghosts too."""
+        if len(arr) == self.n_real < self.system.n_atoms:
+            arr = self._pad(arr, self.system.n_atoms)
         if isinstance(arr, torch.Tensor):
             return arr.to(device=self.device, dtype=torch.float32)
         return torch.as_tensor(np.asarray(arr, np.float32),
                                device=self.device)
+
+    def _sync(self):
+        """On a mesh, rank 0's State on every rank."""
+        if self.mesh is not None:
+            self.state = shard_carry(self.state, self.mesh)
 
     @torch.no_grad()
     def set_positions(self, positions):
@@ -216,11 +258,13 @@ class Context:
 
     @torch.no_grad()
     def get_positions(self):
-        """Positions with virtual sites re-placed in their parent frames."""
-        return self.evaluator.place_vsites(self.state.pos).cpu().numpy()
+        """Positions with virtual sites re-placed in their parent frames
+        (mesh-padding ghosts excluded)."""
+        return self.evaluator.place_vsites(
+            self.state.pos).cpu().numpy()[:self.n_real]
 
     def get_velocities(self):
-        return self.state.vel.cpu().numpy()
+        return self.state.vel.cpu().numpy()[:self.n_real]
 
     def get_box(self):
         return self.state.box.cpu().numpy()
@@ -259,9 +303,12 @@ class Context:
             reads = reads if plist else reads[:-1]
             values = []
             if reads:
-                values = torch.stack([torch.as_tensor(
-                    r, dtype=torch.bool, device=self.device)
-                    for r in reads]).tolist()
+                flags = torch.stack([torch.as_tensor(
+                    r, dtype=torch.uint8, device=self.device)
+                    for r in reads])
+                if self.mesh is not None:
+                    self.mesh.broadcast(flags)
+                values = [bool(v) for v in flags.tolist()]
                 self.host_syncs += 1
             if not plist:
                 return result, values
@@ -310,6 +357,7 @@ class Context:
         list to flag; a plist rebuild whose list overflowed or whose nowrap
         frame budget failed refits the list from the current configuration
         and rebuilds (one host read per plist rebuild)."""
+        self._sync()
         ev, st = self.evaluator, self.state
         if ev.pair_mode == "band":
             self.rebuilds += 1
@@ -330,6 +378,8 @@ class Context:
         ev = self.evaluator
         one_step = self._step_middle if self.data.use_middle else \
             self._step_vv
+        if self.mesh is not None:
+            one_step = sharded_step(one_step, self.mesh)
         n = int(n)
         done = 0
         baro = self.barostat
@@ -359,6 +409,7 @@ class Context:
         whether it was accepted.  The accept flag and the energy lists'
         flags come to the host in one read; a flagged list repeats the
         attempt, with the same draws, on the full list."""
+        self._sync()
         st, ev = self.state, self.evaluator
         draws = self._barostat_draws()
 

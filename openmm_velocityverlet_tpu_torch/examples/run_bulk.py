@@ -10,11 +10,16 @@ restart, and the full reporter set.
 
 It runs on the CUDA card and raises without one.  The reciprocal is the
 port's default route, the exact-k sum by matmul (``recip="exact"``); the
-JAX twin's Context defaults to ``"auto"``.  ``--mesh N`` reaches
-``Context(mesh=...)``, which refuses it: the multi-device path is not
-ported (ROADMAP A16).  Unlike the twin, ``gen_simulation`` takes the Drude
-friction as a parameter instead of reading the parsed arguments, and
-forwards ``ctx_kwargs`` to ``Context``.
+JAX twin's Context defaults to ``"auto"``.  ``--mesh N`` splits the pair
+sweep over N ranks, one device each, started by torchrun:
+
+    torchrun --nproc-per-node N -m \
+        openmm_velocityverlet_tpu_torch.examples.run_bulk --mesh N ...
+
+(``parallel.mesh.launched_mesh``; another number of ranks raises).  Unlike
+the twin, ``gen_simulation`` takes the Drude friction as a parameter
+instead of reading the parsed arguments, and forwards ``ctx_kwargs`` to
+``Context``.
 """
 import argparse
 import sys
@@ -33,6 +38,7 @@ from openmm_velocityverlet_tpu_torch.models.helper import add_clpol_coul_tt
 from openmm_velocityverlet_tpu_torch.models.prmfile import \
     CharmmParameterSet
 from openmm_velocityverlet_tpu_torch.models.psffile import OplsPsfFile
+from openmm_velocityverlet_tpu_torch.parallel.mesh import launched_mesh
 
 parser = argparse.ArgumentParser(
     formatter_class=argparse.ArgumentDefaultsHelpFormatter)
@@ -55,8 +61,8 @@ parser.add_argument("--drude-friction", type=float, default=20.0,
                     "default is 20. 100 suppresses the kinetic T_Drude "
                     "discretization elevation at dt >= 1 fs")
 parser.add_argument("--mesh", type=int, default=0,
-                    help="shard the step over the first N devices; not "
-                    "ported (ROADMAP A16): N > 0 raises")
+                    help="split the pair sweep over N ranks, one device "
+                    "each: launch with torchrun --nproc-per-node N")
 
 
 def gen_simulation(gro_file, psf_file, prm_file, dt=0.001, T=300, P=1,
@@ -119,9 +125,13 @@ def gen_simulation(gro_file, psf_file, prm_file, dt=0.001, T=300, P=1,
     if cos != 0:
         integrator.setCosAcceleration(cos)
 
+    mesh = None
+    if mesh_devices:
+        mesh = launched_mesh(mesh_devices, ctx_kwargs.get("device"))
+        print(f"Sharding over {mesh.size} ranks ({mesh.backend}, "
+              f"{mesh.device})")
     ctx = Context(built.system, integrator, positions=gro.positions,
-                  box=gro.box, barostat=barostat,
-                  mesh=mesh_devices if mesh_devices else None, **ctx_kwargs)
+                  box=gro.box, barostat=barostat, mesh=mesh, **ctx_kwargs)
     sim = Simulation(built.topology, ctx)
     if restart:
         load_checkpoint(ctx, restart)

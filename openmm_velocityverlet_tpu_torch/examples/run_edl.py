@@ -14,8 +14,10 @@ other residue the liquid.  It runs on the CUDA card and raises without one.
 The reciprocal is the port's default route, the exact-k sum by matmul
 (``recip="exact"``; over the liquid only when the images are the trailing
 block mirroring the block before them, ``Context``'s mirror route); the
-JAX twin's Context defaults to ``"auto"``.  ``--mesh N`` reaches
-``Context(mesh=...)``, which refuses it (ROADMAP A16).
+JAX twin's Context defaults to ``"auto"``.  ``--mesh N`` splits the pair
+sweep over N ranks started by ``torchrun --nproc-per-node N`` (another
+number of ranks raises); on a mesh the reciprocal takes the explicit
+evaluation over all atoms, as in the JAX package.
 """
 import argparse
 import random
@@ -38,6 +40,7 @@ from openmm_velocityverlet_tpu_torch.models.prmfile import \
     CharmmParameterSet
 from openmm_velocityverlet_tpu_torch.models.psffile import OplsPsfFile
 from openmm_velocityverlet_tpu_torch.ops import external
+from openmm_velocityverlet_tpu_torch.parallel.mesh import launched_mesh
 
 parser = argparse.ArgumentParser(
     formatter_class=argparse.ArgumentDefaultsHelpFormatter)
@@ -50,8 +53,8 @@ parser.add_argument("--psf", type=str, default="topol.psf")
 parser.add_argument("--prm", type=str, default="ff.prm")
 parser.add_argument("--cpt", type=str)
 parser.add_argument("--mesh", type=int, default=0,
-                    help="shard the step over the first N devices; not "
-                    "ported (ROADMAP A16): N > 0 raises")
+                    help="split the pair sweep over N ranks, one device "
+                    "each: launch with torchrun --nproc-per-node N")
 
 
 def gen_simulation(gro_file, psf_file, prm_file, dt=0.001, T=333, voltage=0,
@@ -160,7 +163,8 @@ def main(argv=None):
     args = parser.parse_args(argv)
     ctx_kwargs = {}
     if args.mesh:
-        ctx_kwargs["mesh"] = args.mesh
+        ctx_kwargs["mesh"] = launched_mesh(args.mesh)
+        print(f"Sharding over {args.mesh} ranks")
     sim = gen_simulation(gro_file=args.gro, psf_file=args.psf,
                          prm_file=args.prm, dt=args.dt, T=args.temp,
                          voltage=args.voltage, restart=args.cpt,

@@ -33,7 +33,16 @@ its capacity ``plist_cap_all`` is sized without that cull.  With
 frame, a list that cannot be flagged: ``Context._energy_query`` repeats a
 query whose list came back flagged that way.
 
-Not ported yet, and refused with NotImplementedError: the mesh (A16).
+On a mesh (``parallel/mesh.py``, the JAX rules of forces.py:140-142 and
+302-309) the pair mode is "band" and the sweep is
+``pair_tri.banded_sweep_sharded``: each rank runs kernel B2 over its share
+of the row tiles and one all_reduce sums the forces, the pair energies and
+the coverage flag.  The band cache is padded to a multiple of the mesh
+size in tiles, ``exact_fused`` becomes ``exact``, and a coverage trip
+never takes the full sweep (``strict_pairs`` is ignored): the flagged step
+runs on the stale cache and the next one on a rebuilt cache.  A system
+whose band is not eligible (too few tiles for its width) is refused at
+construction.
 """
 from __future__ import annotations
 
@@ -122,9 +131,6 @@ class ForceEvaluator:
                  recip: str = "exact", mesh=None,
                  strict_pairs: bool = False, image_mirror=None,
                  device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the multi-device mesh is not ported yet (ROADMAP A16)")
         if recip not in ("exact", "exact_fused", "pme", "auto"):
             raise ValueError(
                 f"recip={recip!r}: the reciprocal routes are 'exact', "
@@ -136,6 +142,12 @@ class ForceEvaluator:
                 f"pair_kernel={pair_kernel!r}: the port's pair kernels are "
                 "'plist' and 'dense'; the z-band sweep is selected with "
                 "fold_exc14=True")
+        if mesh is not None and pair_kernel == "dense":
+            raise ValueError("a mesh splits kernel B2's band sweep; the "
+                             "dense sweep has no split form")
+        self.mesh = mesh
+        # the band cache's tile count is a multiple of the mesh size
+        self._tile_multiple = 1 if mesh is None else mesh.size
         self.system = system
         self.device = resolve_device(device)
         self.external_forces = list(external_forces)
@@ -148,8 +160,9 @@ class ForceEvaluator:
         # the z band carries kernel-folded 1-4 exceptions; the tile-pair
         # list does not (the JAX pair_mode choice, forces.py:139-142)
         self.pair_mode = ("dense" if pair_kernel == "dense"
-                          else "band" if fold_exc14 else "plist")
-        self.strict_pairs = bool(strict_pairs)
+                          else "band" if fold_exc14 or mesh is not None
+                          else "plist")
+        self.strict_pairs = bool(strict_pairs) and mesh is None
         # the JAX choice of reciprocal (forces.py:289-310): "auto" by the
         # cost model, PME on a grid fixed from box_hint
         self.pme_grid = None
@@ -162,6 +175,9 @@ class ForceEvaluator:
             if box_hint is None:
                 raise ValueError("recip='pme' requires box_hint")
             self.pme_grid = pme.choose_grid(np.asarray(box_hint))
+        if recip == "exact_fused" and mesh is not None:
+            # kernels B4/B5 have no split form; the matmul route replicates
+            recip = "exact"
         self.recip_method = recip
         self.skin = 0.1
         dev = self.device
@@ -217,13 +233,19 @@ class ForceEvaluator:
             # 640 and 768: its tile was a grid step.
             costs = []
             for cand in BAND_TILE_SIZES:
-                n_pad = -(-system.n_atoms // cand) * cand
+                n_pad = pair_tri.padded_size(system.n_atoms, cand)
                 w = int(np.ceil(band_atoms / cand)) if band_atoms else 0
                 eligible = w and pair_tri.band_eligible(n_pad, cand, w)
                 if eligible and have_hint:
                     cost = self._band_cost(pos_hint, box_hint, cand, w)
                 elif eligible:
-                    cost = (n_pad // cand) * (w + 1) * cand * cand
+                    # the row tiles a mesh pads in count as rows swept
+                    cost = (pair_tri.padded_size(
+                        system.n_atoms, cand, self._tile_multiple) // cand) \
+                        * (w + 1) * cand * cand
+                elif mesh is not None:
+                    # the split sweep runs only the band
+                    cost = float("inf")
                 else:
                     cost = n_pad * n_pad // 2
                 costs.append((cost, cand))
@@ -294,7 +316,13 @@ class ForceEvaluator:
         elif self.pair_mode == "band":
             self.statics = pair_tri.band_statics(
                 system.charges, self.pair_tables,
-                pair_tri.padded_size(system.n_atoms, self.pair_ts), dev)
+                pair_tri.padded_size(system.n_atoms, self.pair_ts,
+                                     self._tile_multiple), dev)
+        if mesh is not None and not self.uses_band:
+            raise ValueError(
+                f"{system.n_atoms} atoms in tiles of {self.pair_ts} are too "
+                f"few for a band of width {self.band_w}: the mesh's split "
+                "sweep needs an eligible band")
 
         def build_term_eval(sysm):
             exc_mask = self.pair_tables["exc_term_mask"]
@@ -345,7 +373,8 @@ class ForceEvaluator:
         if self.pair_mode == "band":
             return pair_tri.make_pair_cache(
                 self.place_vsites(pos_raw), box, self.t.charges,
-                self.pair_tables, self.pair_ts, statics=self.statics,
+                self.pair_tables, self.pair_ts,
+                tile_multiple=self._tile_multiple, statics=self.statics,
                 inner_order=True)
         return pair_plist.make_pair_cache(
             self.place_vsites(pos_raw), box, self.system.charges,
@@ -360,7 +389,8 @@ class ForceEvaluator:
         BAND_ITEM_COST an item (marked chunk pairs left out: they are the
         same few at every tile size)."""
         pos = np.asarray(pos, np.float64)
-        order = pair_tri.band_layout_np(pos, box, ts)
+        order = pair_tri.band_layout_np(pos, box, ts,
+                                        tile_multiple=self._tile_multiple)
         n = pos.shape[0]
         real = order < n
         pos2d = np.concatenate([pos, np.full((order.shape[0] - n, 3),
@@ -500,6 +530,22 @@ class ForceEvaluator:
                     plist_sort=self.plist_sort, r_switch=s.r_switch,
                     strict=self.strict_pairs, nowrap=nowrap,
                     statics=self.statics)
+        elif self.mesh is not None:
+            if pair_cache is None:
+                pair_cache = self.make_pair_cache(pos_raw, box)
+            cov = pair_tri.band_coverage_bad(pos, box, pair_cache,
+                                             self.pair_ts, self.band_w,
+                                             s.r_cutoff)
+            e_lj, e_coul_dir, e_corr, e14c, e14l, f_direct, cov = \
+                pair_tri.banded_sweep_sharded(
+                    self.mesh, pos, box, t.charges, self.pair_tables,
+                    s.ewald_beta, s.r_cutoff, self.pair_ts, self.band_w,
+                    cache=pair_cache, want_energy=want_energy,
+                    r_switch=s.r_switch, flag=cov)
+            e_lj, e_coul_dir, e_corr, f_direct = pair_tri.residual_adjustment(
+                pos, box, t.charges, self.pair_tables, s.ewald_beta,
+                s.r_cutoff, e_lj, e_coul_dir, e_corr, f_direct,
+                r_switch=s.r_switch)
         elif self.pair_mode == "band":
             e_lj, e_coul_dir, e_corr, e14c, e14l, f_direct, cov = \
                 pair_tri.direct_space_band(

@@ -21,6 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..system import resolve_device
 from ..units import BAR_TO_KJ_MOL_NM3, BOLTZ
 
 KINDS = ("iso", "xyz", "xy", "z", "semi-iso")
@@ -48,7 +49,10 @@ class BarostatState:
     n_accepted: torch.Tensor      # () i32
 
 
-def make_barostat_state(initial_volume, device="cpu") -> BarostatState:
+def make_barostat_state(initial_volume, device="cuda") -> BarostatState:
+    """A fresh move size (1% of ``initial_volume``) and counters on
+    ``device``: the card unless given, as every entry point."""
+    device = resolve_device(device)
     i32 = dict(dtype=torch.int32, device=device)
     return BarostatState(
         volume_scale=torch.as_tensor(0.01 * float(initial_volume),

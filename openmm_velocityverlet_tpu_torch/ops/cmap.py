@@ -22,9 +22,8 @@ import numpy as np
 import torch
 
 from ..units import PI
-from ..utils.pbc import minimum_image
-
-_EPS = 1e-12
+# the JAX package's cmap takes its angle from ops/bonded too
+from .bonded import _dihedral_angle as dihedral_angle
 
 
 # ---------------------------------------------------------------- host side
@@ -112,22 +111,6 @@ def pack_cmap_maps(grids):
 
 
 # -------------------------------------------------------------- device side
-
-def dihedral_angle(pos, box, idx):
-    """Signed dihedral angle of (T, 4) index rows (the JAX package's
-    ``ops/bonded._dihedral_angle``), differentiable in ``pos``."""
-    p0, p1, p2, p3 = (pos[idx[:, k].clamp(min=0)] for k in range(4))
-    b1 = minimum_image(p1 - p0, box)
-    b2 = minimum_image(p2 - p1, box)
-    b3 = minimum_image(p3 - p2, box)
-    n1 = torch.linalg.cross(b1, b2)
-    n2 = torch.linalg.cross(b2, b3)
-    m1 = torch.linalg.cross(n1, b2 / torch.sqrt(
-        torch.sum(b2 * b2, -1, keepdim=True) + _EPS))
-    x = torch.sum(n1 * n2, -1)
-    y = torch.sum(m1 * n2, -1)
-    return torch.atan2(y, x + _EPS * (x == 0))
-
 
 def cmap_energy(pos, box, cmap_atoms, cmap_map, cmap_coeffs, cmap_res):
     """Total CMAP energy, differentiable in ``pos``.  ``cmap_atoms`` (T, 8)

@@ -29,8 +29,8 @@ z-sorted tile so that a chunk is a compact rectangle of the tile's slab,
 and ``chunk_pair_map`` marks the chunk pairs that hold an excluded or
 folded 1-4 pair, which the skip must leave alone.  ``skip_model_np`` is a
 numpy model of what the kernel then evaluates.  ``tri_pair`` also has the
-JAX kernel's row-sharded form (``row_off``, ``n_tiles_g``); the
-multi-device sweep that would call it is not ported.
+JAX kernel's row-sharded form (``row_off``, ``n_tiles_g``), which
+``banded_sweep_sharded`` runs on each rank of a mesh.
 """
 from __future__ import annotations
 
@@ -562,14 +562,15 @@ def skip_model_np(pos, real, box, marked, ts: int, r_cutoff: float,
     return items, evaluations
 
 
-def band_layout_np(pos, box, ts: int, inner_order: bool = True):
+def band_layout_np(pos, box, ts: int, inner_order: bool = True,
+                   tile_multiple: int = 1):
     """Host-side (numpy) mirror of ``make_pair_cache``'s layout: the
     (n_pad,) slot -> atom order (pads are n .. n_pad - 1), with the keys
     taken in float32 as on the device."""
     p32 = np.asarray(pos, np.float32)
     b32 = np.asarray(box, np.float32).reshape(3)
     n = p32.shape[0]
-    n_pad = padded_size(n, ts)
+    n_pad = padded_size(n, ts, tile_multiple)
     zw = p32[:, 2] - b32[2] * np.floor(p32[:, 2] / b32[2])
     keys = np.concatenate([zw, np.full(n_pad - n, 1e30, np.float32)])
     order = np.argsort(keys, kind="stable")
@@ -746,6 +747,68 @@ def run_tri(pos, q, ab, bits, bits14, oid, ljt, grp, grows, box, *, ts,
         rows = rows + rows_f
         colacc = colacc + col_f
     return rows, colacc
+
+
+def banded_sweep_sharded(mesh, pos, box, charges, tables, beta, r_cutoff,
+                         ts: int, band_w: int,
+                         cache: Optional[BandCache] = None,
+                         want_energy: bool = True, r_switch: float = 0.0,
+                         flag=None):
+    """The z-banded sweep split over the row tiles of a mesh (the JAX
+    ``banded_sweep_sharded``): each rank runs kernel B2's ``bandall``
+    enumeration over its ``n_tiles / mesh.size`` row tiles from
+    ``rank * tiles_local`` on, the column wrapping on the ring of the tiles
+    that hold real atoms; it writes its rows into a zeroed full-length
+    (n_pad, 8) buffer, adds its column accumulator to the force columns,
+    and one ``all_reduce`` sums the buffers, so every rank gets the whole
+    direct-space force and the pair energies.  Returns (e_lj, e_coul,
+    e_corr, e14_coul, e14_lj, forces), without the residual adjustment
+    (the caller applies it on the summed result).  ``flag``, a device
+    bool, is OR-ed over the ranks in the same all_reduce and returned as a
+    seventh element.
+
+    The cache (built here with ``tile_multiple=mesh.size`` when None) must
+    hold a multiple of ``ts * mesh.size`` slots, and the band must be
+    eligible on the ring of real tiles; both raise ValueError otherwise."""
+    n = pos.shape[0]
+    dev = pos.device
+    box = box.reshape(3)
+    if cache is None:
+        cache = make_pair_cache(pos, box, charges, tables, ts,
+                                tile_multiple=mesh.size, inner_order=True)
+    n_pad = cache.perm.shape[0]
+    if n_pad % (ts * mesh.size):
+        raise ValueError(
+            f"n_pad={n_pad} not divisible by ts*n_dev={ts * mesh.size}; "
+            f"build the cache with make_pair_cache(..., tile_multiple=n_dev)")
+    n_tiles_real = -(-n // ts)
+    if not band_eligible(n_tiles_real * ts, ts, band_w):
+        raise ValueError("banded enumeration not eligible for this size")
+    tiles_local = n_pad // ts // mesh.size
+    row0 = mesh.rank * tiles_local * ts
+    pos2d = torch.cat([pos, torch.full((n_pad - n, 3), 1e6,
+                                       dtype=torch.float32,
+                                       device=dev)])[cache.perm]
+    rows, colacc = tri_pair(
+        pos2d, cache.q, cache.ab, cache.bits, cache.bits14, cache.oid,
+        cache.ljt, cache.grp, cache.grows, box, ts=ts,
+        t_dim=tables["arows"].shape[1], beta=beta, r_cutoff=r_cutoff,
+        mode="bandall", band_w=band_w, want_energy=want_energy,
+        has14=bool(tables.get("has_exc14", False)), r_switch=r_switch,
+        row_off=mesh.rank * tiles_local, n_tiles_g=n_tiles_real,
+        n_row_tiles=tiles_local, cmap=cache.cmap)
+    buf = torch.zeros(n_pad * 8 + 1, dtype=torch.float32, device=dev)
+    full = buf[:-1].view(n_pad, 8)
+    full[row0:row0 + rows.shape[0]] = rows
+    full[:, :3] += colacc[:3].t()
+    if flag is not None:
+        buf[-1] = flag
+    mesh.all_reduce(buf)
+    forces = full[:, :3][cache.invperm][:n]
+    out = [torch.sum(full[:, c]) for c in range(3, 8)] + [forces]
+    if flag is not None:
+        out.append(buf[-1] > 0)
+    return tuple(out)
 
 
 def direct_space_band(pos, box, charges, tables, beta, r_cutoff, ts: int,

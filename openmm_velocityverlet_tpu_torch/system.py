@@ -165,6 +165,57 @@ def system_from_numpy(obj) -> System:
     return System(**kw)
 
 
+def pad_system(system: System, n_pad: int) -> System:
+    """Append ``n_pad - n_atoms`` ghost particles (the JAX ``pad_system``):
+    massless, chargeless, of a dedicated zero-LJ type, excluded from every
+    term table, each its own massless molecule.  ``Context(mesh=...)`` pads
+    to a multiple of the mesh size and hides the ghosts from the public
+    position and velocity surface.  Refuses implicit-solvent (GB) systems,
+    as the JAX package does."""
+    n = system.n_atoms
+    extra = int(n_pad) - n
+    if extra <= 0:
+        return system
+    if system.gb is not None:
+        raise NotImplementedError(
+            "mesh padding of implicit-solvent (GB) systems is not supported"
+            " — GB is a non-periodic model (oplspsffile.py:1585-1586)")
+    d = {f.name: getattr(system, f.name) for f in dataclasses.fields(system)}
+
+    def app(name, fill):
+        a = np.asarray(d[name])
+        d[name] = np.concatenate(
+            [a, np.full((extra,) + a.shape[1:], fill, a.dtype)], axis=0)
+
+    # the ghosts' LJ type is a new zero row and column
+    t_dim = np.asarray(d["acoef"]).shape[0]
+    for name in ("acoef", "bcoef"):
+        d[name] = np.pad(np.asarray(d[name]), ((0, 1), (0, 1))).astype(
+            np.float32)
+    app("lj_type", t_dim)
+    for name in ("masses", "inv_masses", "charges", "nbt_alpha",
+                 "tt_charges"):
+        app(name, 0.0)
+    app("lj_group", 0)
+    app("nbt_idx", 0)
+    app("tt_dipole_mask", False)
+    app("exclusions", -1)
+    app("exc_idx", -1)
+    for name in ("exc_qq", "exc_c6", "exc_c12"):
+        app(name, 0.0)
+    mol_id = np.asarray(d["particle_mol_id"])
+    m = np.asarray(d["mol_masses"]).shape[0]
+    d["particle_mol_id"] = np.concatenate(
+        [mol_id, (m + np.arange(extra)).astype(mol_id.dtype)])
+    for name in ("mol_masses", "mol_inv_masses", "mol_table"):
+        # a molecule's row of the per-molecule tables: mass 0, no members
+        a = np.asarray(d[name])
+        d[name] = np.concatenate(
+            [a, np.full((extra,) + a.shape[1:], -1 if a.ndim == 2 else 0,
+                        a.dtype)], axis=0)
+    return System(**d)
+
+
 @dataclasses.dataclass
 class State:
     """Everything that evolves during the simulation.

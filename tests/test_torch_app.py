@@ -32,6 +32,7 @@ class _StubContext:
 
     def __init__(self, system=None, n=5, dt=0.002, seed=0):
         self.system = system
+        self.mesh = None
         self.integrator = SimpleNamespace(getStepSize=lambda: dt,
                                           getCosAcceleration=lambda: 0.02)
         self.rng = np.random.default_rng(seed)

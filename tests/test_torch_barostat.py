@@ -85,7 +85,7 @@ def test_attempt_move_matches_jax(kind, temperature):
     cfg_t = tpkg.BarostatConfig(kind, 200.0, temperature, 10)
     vol = float(np.prod(box.astype(np.float64)))
     bs_j = jbaro.make_barostat_state(vol)
-    bs_t = tbaro.make_barostat_state(vol)
+    bs_t = tbaro.make_barostat_state(vol, device="cpu")
     mol = tbaro.molecule_tables(ps, "cpu")
     pj, bj = jnp.asarray(pos), jnp.asarray(box)
     pt, bt = torch.tensor(pos), torch.tensor(box)

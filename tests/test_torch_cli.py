@@ -197,7 +197,8 @@ def test_run_bulk_matches_jax_script(tmp_path, monkeypatch):
 def test_run_bulk_options_and_mesh(tmp_path, monkeypatch):
     """The Nose-Hoover / no-barostat / cosine wiring against the JAX
     script's, a restart from a checkpoint the script's own reporter wrote,
-    and --mesh N > 0, which reaches Context and raises (ROADMAP A16)."""
+    and --mesh N > 0 in a launch of another number of ranks, which raises
+    naming torchrun (the mesh itself: tests/test_torch_mesh.py)."""
     monkeypatch.chdir(tmp_path)
     psf, prm, gro = chip_smoke.write_charmm_fixture(str(tmp_path), 2)
     args = run_bulk.parser.parse_args([
@@ -225,7 +226,7 @@ def test_run_bulk_options_and_mesh(tmp_path, monkeypatch):
     assert again.current_step == 4
     np.testing.assert_array_equal(again.context.get_positions(),
                                   sim.context.get_positions())
-    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
+    with pytest.raises(ValueError, match="torchrun"):
         run_bulk.simulation_from_args(run_bulk.parser.parse_args(
             ["--gro", gro, "--psf", psf, "--prm", prm, "--mesh", "2"]),
             device="cpu")

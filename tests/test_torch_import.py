@@ -8,6 +8,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import openmm_velocityverlet_tpu as jpkg
 import openmm_velocityverlet_tpu_torch as tpkg
@@ -87,18 +88,22 @@ def test_system_and_state_from_jax():
 
 
 def test_entry_points_default_to_the_card():
-    """Context, ForceEvaluator, make_state, state_from_numpy and
-    build_constraint_data default to device="cuda".  Without a card that
+    """Context, ForceEvaluator, make_state, state_from_numpy,
+    build_constraint_data and make_barostat_state default to
+    device="cuda".  Without a card that
     default raises at construction instead of running on the host; with
     one, a Context built without a device lives on it."""
     import inspect
 
     import torch
 
+    from openmm_velocityverlet_tpu_torch.integrators.barostat import \
+        make_barostat_state
     from openmm_velocityverlet_tpu_torch.ops.constraints import \
         build_constraint_data
     for fn in (tpkg.Context.__init__, tpkg.ForceEvaluator.__init__,
-               make_state, state_from_numpy, build_constraint_data):
+               make_state, state_from_numpy, build_constraint_data,
+               make_barostat_state):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     ps, pos, box = drude_water_box(8)
     integ = tpkg.VVIntegrator()
@@ -114,12 +119,13 @@ def test_entry_points_default_to_the_card():
             lambda: state_from_numpy(fresh),
             lambda: build_constraint_data(ps.constraints,
                                           ps.constraint_dist,
-                                          ps.inv_masses)):
+                                          ps.inv_masses),
+            lambda: make_barostat_state(1.0)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
 
 
-def test_unported_features_raise():
+def test_unported_features_raise(tmp_path):
     ps, pos, box = drude_water_box(8)
     # the integrator features of ROADMAP A10 are ported: Langevin, the
     # E-field, cosine acceleration and the vanilla VV scheme construct
@@ -156,10 +162,21 @@ def test_unported_features_raise():
     assert "external_0" in ctx.potential_energy_terms()
     assert ctx.baro_attempts == 1
     integ = tpkg.VVIntegrator()
-    # the mesh (A16) is what the port still refuses
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpkg.Context(ps, integ, positions=pos, box=box, device="cpu",
-                     mesh=object())
+    # the mesh (A16) is ported: a world of one under gloo on the CPU
+    # constructs and steps (its split sweep needs an eligible band, hence
+    # the larger box and 32-atom tiles)
+    from openmm_velocityverlet_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(size=1, device="cpu", rank=0,
+                     init_method=f"file://{tmp_path}/store")
+    try:
+        mps, mpos, mbox = drude_water_box(125)
+        ctx = tpkg.Context(mps, tpkg.VVIntegrator(), positions=mpos,
+                           box=mbox, pair_ts=32, mesh=mesh, device="cpu")
+        assert (ctx.mesh.size, ctx.evaluator.pair_mode) == (1, "band")
+        ctx.step(1)
+        assert np.isfinite(ctx.get_positions()).all()
+    finally:
+        torch.distributed.destroy_process_group()
     # PME and "auto" (A13) construct and step
     for recip in ("pme", "auto"):
         ctx = tpkg.Context(ps, tpkg.VVIntegrator(), positions=pos, box=box,
