@@ -77,6 +77,7 @@ from .integrators.vv import IntegratorData, VVIntegrator
 from .ops import constraints as cons_mod
 from .parallel.mesh import shard_carry, sharded_step
 from .system import State, System, make_state, pad_system, resolve_device
+from . import trace
 from .units import BOLTZ
 
 
@@ -110,101 +111,107 @@ class Context:
                  device="cuda"):
         """On a mesh the context runs on the mesh's device, which
         ``device`` must name in kind ("cpu" for a host mesh)."""
-        if box is None:
-            raise ValueError("box is required")
-        self.mesh = mesh
-        self.n_real = system.n_atoms
-        self.device = resolve_device(device)
-        if mesh is not None:
-            if self.device.type != mesh.device.type:
-                raise ValueError(f"device {device!r} is not the mesh's "
-                                 f"{mesh.device}")
-            self.device = mesh.device
-            n_pad = -(-system.n_atoms // mesh.size) * mesh.size
-            system = pad_system(system, n_pad)
+        with trace.span("context.init"):
+            if box is None:
+                raise ValueError("box is required")
+            self.mesh = mesh
+            self.n_real = system.n_atoms
+            self.device = resolve_device(device)
+            if mesh is not None:
+                if self.device.type != mesh.device.type:
+                    raise ValueError(f"device {device!r} is not the mesh's "
+                                     f"{mesh.device}")
+                self.device = mesh.device
+                n_pad = -(-system.n_atoms // mesh.size) * mesh.size
+                system = pad_system(system, n_pad)
+                if positions is not None:
+                    positions = self._pad(positions, n_pad)
+            if self.device.type == "cuda":
+                # the reciprocal contraction must stay in full float32
+                torch.backends.cuda.matmul.allow_tf32 = False
+            self.system = system
+            self.integrator = integrator
+            self.data: IntegratorData = integrator.build_data(system)
+            self.sort_refresh = int(sort_refresh)
+            box = np.asarray(box, np.float32)
+            # no mirror route on a mesh, as in the JAX package
+            self.image_mirror = (image_mirror(self.data, system.charges)
+                                 if mesh is None else None)
+            self.evaluator = ForceEvaluator(
+                system, external_forces, ewald_chunk=ewald_chunk,
+                row_block=row_block, pair_ts=pair_ts, fold_exc14=fold_exc14,
+                recip=recip, box_hint=box, pos_hint=positions, mesh=mesh,
+                strict_pairs=strict_pairs, pair_kernel=pair_kernel,
+                image_mirror=self.image_mirror, device=self.device)
+            self.cons = cons_mod.build_constraint_data(
+                np.asarray(system.constraints),
+                np.asarray(system.constraint_dist),
+                np.asarray(system.inv_masses),
+                tolerance=integrator.constraint_tolerance, device=self.device)
+            n = system.n_atoms
+            self.state: State = make_state(
+                np.zeros((n, 3), np.float32) if positions is None
+                else positions,
+                box, num_nh_chains=integrator.num_nh_chains,
+                seed=integrator.random_number_seed, device=self.device)
+            t = self.evaluator.t
+            self._masses = t.masses
+            self._inv_m = t.inv_masses
+            data = self.data
+            inv_m_np = np.asarray(system.inv_masses, np.float32)
+            self._dt_inv_m = torch.as_tensor(
+                (data.dt * inv_m_np).astype(np.float32),
+                device=self.device)[:, None]
+            self._half_dt_inv_m = torch.as_tensor(
+                (0.5 * data.dt * inv_m_np).astype(np.float32),
+                device=self.device)[:, None]
+            self._total_mass = float(np.sum(np.asarray(system.masses)))
+            dev = self.device
+            self._thermo = stepping.thermostat_tables(system, data, dev)
+            self._hardwall = stepping.hardwall_tables(system, data, dev)
+            self._langevin = stepping.langevin_tables(system, data, dev)
+            # the E-field force is a constant (N,3) table; none without a
+            # field
+            self._efield = None
+            if data.electrolyte.shape[0] and data.electric_field != 0:
+                fz = stepping.efield_extra_force(np.asarray(system.charges),
+                                                 data)
+                self._efield = torch.as_tensor(
+                    fz[:, None] * np.asarray([0.0, 0.0, 1.0], np.float32),
+                    device=self.device)
+            self._ex = torch.tensor([1.0, 0.0, 0.0], device=self.device)
+            self._images = (torch.as_tensor(
+                np.asarray(data.image_pairs, np.int64), device=self.device)
+                if data.image_pairs.shape[0] else None)
+            self.barostat = barostat
+            if barostat is not None:
+                self._baro_mol = baro_mod.molecule_tables(system, self.device)
+                self.baro_state = baro_mod.make_barostat_state(
+                    float(np.prod(box.astype(np.float64))), self.device)
+            self._has_extra = (self._langevin is not None
+                               or self._efield is not None
+                               or data.cos_acceleration != 0)
+            # the VV scheme's force carry (the JAX Carry.forces, forces_extra,
+            # forces_valid)
+            self._forces = None
+            self._forces_extra = torch.zeros((system.n_atoms, 3),
+                                             device=self.device)
+            self._forces_valid = False
+            # counters of the segment loop: cache rebuilds, segments ended by
+            # a coverage trip, pair-list refits, and host reads of device
+            # values (those of step() and of the energy queries)
+            self.rebuilds = 0
+            self.coverage_rebuilds = 0
+            self.refits = 0
+            self.host_syncs = 0
+            # the barostat's attempts and acceptances since construction, and
+            # the box scale of its last accepted move
+            self.baro_attempts = 0
+            self.baro_accepts = 0
+            self.baro_last_scale = None
             if positions is not None:
-                positions = self._pad(positions, n_pad)
-        if self.device.type == "cuda":
-            # the reciprocal contraction must stay in full float32
-            torch.backends.cuda.matmul.allow_tf32 = False
-        self.system = system
-        self.integrator = integrator
-        self.data: IntegratorData = integrator.build_data(system)
-        self.sort_refresh = int(sort_refresh)
-        box = np.asarray(box, np.float32)
-        # no mirror route on a mesh, as in the JAX package
-        self.image_mirror = (image_mirror(self.data, system.charges)
-                             if mesh is None else None)
-        self.evaluator = ForceEvaluator(
-            system, external_forces, ewald_chunk=ewald_chunk,
-            row_block=row_block, pair_ts=pair_ts, fold_exc14=fold_exc14,
-            recip=recip, box_hint=box, pos_hint=positions, mesh=mesh,
-            strict_pairs=strict_pairs, pair_kernel=pair_kernel,
-            image_mirror=self.image_mirror, device=self.device)
-        self.cons = cons_mod.build_constraint_data(
-            np.asarray(system.constraints), np.asarray(system.constraint_dist),
-            np.asarray(system.inv_masses),
-            tolerance=integrator.constraint_tolerance, device=self.device)
-        n = system.n_atoms
-        self.state: State = make_state(
-            np.zeros((n, 3), np.float32) if positions is None else positions,
-            box, num_nh_chains=integrator.num_nh_chains,
-            seed=integrator.random_number_seed, device=self.device)
-        t = self.evaluator.t
-        self._masses = t.masses
-        self._inv_m = t.inv_masses
-        data = self.data
-        inv_m_np = np.asarray(system.inv_masses, np.float32)
-        self._dt_inv_m = torch.as_tensor(
-            (data.dt * inv_m_np).astype(np.float32),
-            device=self.device)[:, None]
-        self._half_dt_inv_m = torch.as_tensor(
-            (0.5 * data.dt * inv_m_np).astype(np.float32),
-            device=self.device)[:, None]
-        self._total_mass = float(np.sum(np.asarray(system.masses)))
-        self._thermo = stepping.thermostat_tables(system, data, self.device)
-        self._hardwall = stepping.hardwall_tables(system, data, self.device)
-        self._langevin = stepping.langevin_tables(system, data, self.device)
-        # the E-field force is a constant (N,3) table; none without a field
-        self._efield = None
-        if data.electrolyte.shape[0] and data.electric_field != 0:
-            fz = stepping.efield_extra_force(np.asarray(system.charges), data)
-            self._efield = torch.as_tensor(
-                fz[:, None] * np.asarray([0.0, 0.0, 1.0], np.float32),
-                device=self.device)
-        self._ex = torch.tensor([1.0, 0.0, 0.0], device=self.device)
-        self._images = (torch.as_tensor(
-            np.asarray(data.image_pairs, np.int64), device=self.device)
-            if data.image_pairs.shape[0] else None)
-        self.barostat = barostat
-        if barostat is not None:
-            self._baro_mol = baro_mod.molecule_tables(system, self.device)
-            self.baro_state = baro_mod.make_barostat_state(
-                float(np.prod(box.astype(np.float64))), self.device)
-        self._has_extra = (self._langevin is not None
-                           or self._efield is not None
-                           or data.cos_acceleration != 0)
-        # the VV scheme's force carry (the JAX Carry.forces, forces_extra,
-        # forces_valid)
-        self._forces = None
-        self._forces_extra = torch.zeros((system.n_atoms, 3),
-                                         device=self.device)
-        self._forces_valid = False
-        # counters of the segment loop: cache rebuilds, segments ended by
-        # a coverage trip, pair-list refits, and host reads of device
-        # values (those of step() and of the energy queries)
-        self.rebuilds = 0
-        self.coverage_rebuilds = 0
-        self.refits = 0
-        self.host_syncs = 0
-        # the barostat's attempts and acceptances since construction, and
-        # the box scale of its last accepted move
-        self.baro_attempts = 0
-        self.baro_accepts = 0
-        self.baro_last_scale = None
-        if positions is not None:
-            self.set_positions(positions)
-        self._sync()
+                self.set_positions(positions)
+            self._sync()
 
     # --------------------------------------------------------- public API
     @staticmethod
@@ -281,7 +288,8 @@ class Context:
         return float(stepping.kinetic_energy(self.state.vel, self._masses))
 
     def _refit(self, pos, box):
-        note = self.evaluator.refit_pair_list(pos, box)
+        with trace.span("loop.refit"):
+            note = self.evaluator.refit_pair_list(pos, box)
         self.refits += 1
         print(f"[vv-torch] pair list refit after a flagged rebuild: {note}",
               file=sys.stderr)
@@ -298,22 +306,23 @@ class Context:
         which cannot be flagged.  Returns (result, the values read before
         the flag)."""
         plist = self.evaluator.pair_mode == "plist"
-        for full in (False, True):
-            result, reads = query(full)
-            reads = reads if plist else reads[:-1]
-            values = []
-            if reads:
-                flags = torch.stack([torch.as_tensor(
-                    r, dtype=torch.uint8, device=self.device)
-                    for r in reads])
-                if self.mesh is not None:
-                    self.mesh.broadcast(flags)
-                values = [bool(v) for v in flags.tolist()]
-                self.host_syncs += 1
-            if not plist:
-                return result, values
-            if not values[-1]:
-                return result, values[:-1]
+        with trace.span("energy.query"):
+            for full in (False, True):
+                result, reads = query(full)
+                reads = reads if plist else reads[:-1]
+                values = []
+                if reads:
+                    flags = torch.stack([torch.as_tensor(
+                        r, dtype=torch.uint8, device=self.device)
+                        for r in reads])
+                    if self.mesh is not None:
+                        self.mesh.broadcast(flags)
+                    values = [bool(v) for v in flags.tolist()]
+                    self.host_syncs += 1
+                if not plist:
+                    return result, values
+                if not values[-1]:
+                    return result, values[:-1]
         raise RuntimeError("the full energy list came back flagged")
 
     def _energy_forces(self, pos, box):
@@ -357,18 +366,19 @@ class Context:
         list to flag; a plist rebuild whose list overflowed or whose nowrap
         frame budget failed refits the list from the current configuration
         and rebuilds (one host read per plist rebuild)."""
-        self._sync()
-        ev, st = self.evaluator, self.state
-        if ev.pair_mode == "band":
-            self.rebuilds += 1
-            return ev.make_pair_cache(st.pos, st.box)
-        for _ in range(3):
-            cache = ev.make_pair_cache(st.pos, st.box)
-            self.rebuilds += 1
-            self.host_syncs += 1
-            if not bool(cache.overflow):
-                return cache
-            self._refit(st.pos, st.box)
+        with trace.span("loop.rebuild"):
+            self._sync()
+            ev, st = self.evaluator, self.state
+            if ev.pair_mode == "band":
+                self.rebuilds += 1
+                return ev.make_pair_cache(st.pos, st.box)
+            for _ in range(3):
+                cache = ev.make_pair_cache(st.pos, st.box)
+                self.rebuilds += 1
+                self.host_syncs += 1
+                if not bool(cache.overflow):
+                    return cache
+                self._refit(st.pos, st.box)
         raise RuntimeError("pair list still flagged after refitting")
 
     @torch.no_grad()
@@ -384,21 +394,26 @@ class Context:
         done = 0
         baro = self.barostat
         while done < n:
-            cache = self._fresh_cache() if ev.uses_band else None
-            lim = min(done + self.sort_refresh, n)
-            while done < lim:
-                if baro is not None and self.state.step % baro.frequency == 0 \
-                        and self._barostat_attempt() and ev.uses_band:
-                    cache = self._fresh_cache()
-                cov = one_step(cache)
-                done += 1
-                if ev.uses_band:
-                    # with strict_pairs the evaluator has read the flag
-                    # already, before the kick, and cov is a Python bool
-                    self.host_syncs += 1
-                    if bool(cov):
-                        self.coverage_rebuilds += 1
-                        break
+            with trace.span("loop.segment"):
+                cache = self._fresh_cache() if ev.uses_band else None
+                lim = min(done + self.sort_refresh, n)
+                while done < lim:
+                    if baro is not None \
+                            and self.state.step % baro.frequency == 0 \
+                            and self._barostat_attempt() and ev.uses_band:
+                        cache = self._fresh_cache()
+                    with trace.span("step", self.state.step):
+                        cov = one_step(cache)
+                    done += 1
+                    if ev.uses_band:
+                        # with strict_pairs the evaluator has read the flag
+                        # already, before the kick, and cov is a Python bool
+                        self.host_syncs += 1
+                        with trace.span("loop.flag_read"):
+                            tripped = bool(cov)
+                        if tripped:
+                            self.coverage_rebuilds += 1
+                            break
 
     def _barostat_draws(self):
         return baro_mod.draw(self.barostat.kind, self.state.generator,
@@ -409,43 +424,45 @@ class Context:
         whether it was accepted.  The accept flag and the energy lists'
         flags come to the host in one read; a flagged list repeats the
         attempt, with the same draws, on the full list."""
-        self._sync()
-        st, ev = self.state, self.evaluator
-        draws = self._barostat_draws()
+        with trace.span("baro.attempt"):
+            self._sync()
+            st, ev = self.state, self.evaluator
+            draws = self._barostat_draws()
 
-        def query(full):
-            flags = []
+            def query(full):
+                flags = []
 
-            def energy(pos, box):
-                terms, _, bad = ev.energy_forces(pos, box, return_cov=True,
-                                                 full_list=full)
-                flags.append(torch.as_tensor(bad, device=self.device))
-                return sum(terms.values())
-            move = baro_mod.attempt_move(self.barostat, self.baro_state,
-                                         st.pos, st.box, self._baro_mol,
-                                         energy, draws)
-            return move, [move[0], flags[0] | flags[1]]
-        (_, pos, box, bst, scale), (accepted,) = self._energy_query(query)
-        self.baro_state = bst
-        self.baro_attempts += 1
-        if accepted:
-            self.baro_accepts += 1
-            self.baro_last_scale = scale
-            self.state = st.replace(pos=pos, box=box,
-                                    pos_err=torch.zeros_like(st.pos_err))
-            self._forces_valid = False
-        return accepted
+                def energy(pos, box):
+                    terms, _, bad = ev.energy_forces(pos, box, return_cov=True,
+                                                     full_list=full)
+                    flags.append(torch.as_tensor(bad, device=self.device))
+                    return sum(terms.values())
+                move = baro_mod.attempt_move(self.barostat, self.baro_state,
+                                             st.pos, st.box, self._baro_mol,
+                                             energy, draws)
+                return move, [move[0], flags[0] | flags[1]]
+            (_, pos, box, bst, scale), (accepted,) = self._energy_query(query)
+            self.baro_state = bst
+            self.baro_attempts += 1
+            if accepted:
+                self.baro_accepts += 1
+                self.baro_last_scale = scale
+                self.state = st.replace(pos=pos, box=box,
+                                        pos_err=torch.zeros_like(st.pos_err))
+                self._forces_valid = False
+            return accepted
 
     def _sync_images(self, new_pos, new_err):
         """Images onto their parents' mirror; ``pos_err`` zeroed on every
         row the sync moved."""
         if self._images is None:
             return new_pos, new_err
-        img_pos = stepping.update_image_positions(
-            new_pos, self._images, self.data.mirror_location)
-        moved = (img_pos != new_pos).any(-1, keepdim=True)
-        return img_pos, torch.where(moved, torch.zeros_like(new_err),
-                                    new_err)
+        with trace.span("step.images"):
+            img_pos = stepping.update_image_positions(
+                new_pos, self._images, self.data.mirror_location)
+            moved = (img_pos != new_pos).any(-1, keepdim=True)
+            return img_pos, torch.where(moved, torch.zeros_like(new_err),
+                                        new_err)
 
     def _draws(self, *shapes):
         """Standard normal float32 draws from the State's generator, one
@@ -476,18 +493,33 @@ class Context:
         """The TGNH block with the cosine velocity bias removed before and
         restored after it (VVIntegrator.cpp:251-260); the bias amplitude is
         kept in the State for ``get_viscosity``."""
-        cos_v = st.cos_v
-        has_cos = self.data.cos_acceleration != 0
-        if has_cos:
-            cos_v = stepping.cos_velocity_bias(pos, vel, self._masses, box)
-            vel = stepping.cos_shift_velocity(pos, vel, box, cos_v, -1.0)
-        vel, eta, eta_dot, eta_dotdot, _ = stepping.nh_scale_velocities(
-            vel, self.data, self._thermo, st.nh_eta, st.nh_eta_dot,
-            st.nh_eta_dotdot)
-        if has_cos:
-            vel = stepping.cos_shift_velocity(pos, vel, box, cos_v, 1.0)
-        return vel, st.replace(nh_eta=eta, nh_eta_dot=eta_dot,
-                               nh_eta_dotdot=eta_dotdot, cos_v=cos_v)
+        with trace.span("step.thermostat"):
+            cos_v = st.cos_v
+            has_cos = self.data.cos_acceleration != 0
+            if has_cos:
+                cos_v = stepping.cos_velocity_bias(pos, vel, self._masses,
+                                                   box)
+                vel = stepping.cos_shift_velocity(pos, vel, box, cos_v, -1.0)
+            vel, eta, eta_dot, eta_dotdot, _ = stepping.nh_scale_velocities(
+                vel, self.data, self._thermo, st.nh_eta, st.nh_eta_dot,
+                st.nh_eta_dotdot)
+            if has_cos:
+                vel = stepping.cos_shift_velocity(pos, vel, box, cos_v, 1.0)
+            return vel, st.replace(nh_eta=eta, nh_eta_dot=eta_dot,
+                                   nh_eta_dotdot=eta_dotdot, cos_v=cos_v)
+
+    def _step_forces(self, pos, vel, box, cache, ld_as_force):
+        """The step's force evaluation at ``pos``: (forces, extra forces,
+        coverage flag).  The extra forces are None where the system has
+        none, or where ``ld_as_force`` is None (the VV scheme's evaluation
+        with an invalid carry, which kicks with the carried ones)."""
+        with trace.span("step.forces"):
+            _, F, cov = self.evaluator.energy_forces(
+                pos, box, want_energy=False, pair_cache=cache,
+                return_cov=True)
+            Fx = (self._extra_forces(pos, vel, box, ld_as_force)
+                  if self._has_extra and ld_as_force is not None else None)
+        return F, Fx, cov
 
     def _remove_cm_motion(self, vel):
         if self.system.has_cm_motion_remover:
@@ -501,11 +533,11 @@ class Context:
         has_cons = cons.n_constraints > 0
         vel = self._remove_cm_motion(st.vel)
         pos, err, box = st.pos, st.pos_err, st.box
-        _, F, cov = self.evaluator.energy_forces(
-            pos, box, want_energy=False, pair_cache=cache, return_cov=True)
-        if self._has_extra:
-            # Langevin runs as the exact OU map below, not as a force
-            F = F + self._extra_forces(pos, vel, box, ld_as_force=False)
+        # Langevin runs as the exact OU map below, not as a force
+        F, Fx, cov = self._step_forces(pos, vel, box, cache,
+                                       ld_as_force=False)
+        if Fx is not None:
+            F = F + Fx
         dt = data.dt
         vel = vel + self._dt_inv_m * F                       # full kick
         if has_cons:
@@ -517,10 +549,11 @@ class Context:
         lt = self._langevin
         if lt is not None:
             n = self.system.n_atoms
-            xi_n, xi_p = self._draws((n, 3) if lt["n_normal"] else (0, 3),
-                                     (n, 2, 3) if lt["n_pairs"]
-                                     else (0, 2, 3))
-            vel = stepping.langevin_ou_update(vel, lt, xi_n, xi_p)
+            with trace.span("step.langevin"):
+                xi_n, xi_p = self._draws((n, 3) if lt["n_normal"] else (0, 3),
+                                         (n, 2, 3) if lt["n_pairs"]
+                                         else (0, 2, 3))
+                vel = stepping.langevin_ou_update(vel, lt, xi_n, xi_p)
             if has_cons:
                 vel = cons_mod.apply_velocity_constraints(
                     pos, vel, box, cons, self._inv_m)
@@ -555,8 +588,7 @@ class Context:
         if self._forces_valid:
             F = self._forces
         else:
-            _, F = ev.energy_forces(pos, box, want_energy=False,
-                                    pair_cache=cache)
+            F, _, _ = self._step_forces(pos, vel, box, cache, None)
             if ev.strict_pairs and ev.uses_band:
                 self.host_syncs += 1
         dt = data.dt
@@ -577,10 +609,10 @@ class Context:
         new_pos, new_err = stepping.compensated_add(new_pos, new_err,
                                                     hw_pos - new_pos)
         new_pos, new_err = self._sync_images(new_pos, new_err)
-        _, F2, cov = ev.energy_forces(new_pos, box, want_energy=False,
-                                      pair_cache=cache, return_cov=True)
-        Fx2 = (self._extra_forces(new_pos, vel, box, ld_as_force=True)
-               if self._has_extra else torch.zeros_like(F2))
+        F2, Fx2, cov = self._step_forces(new_pos, vel, box, cache,
+                                         ld_as_force=True)
+        if Fx2 is None:
+            Fx2 = torch.zeros_like(F2)
         vel = vel + self._half_dt_inv_m * (F2 + Fx2)
         if has_cons:
             vel = cons_mod.apply_velocity_constraints(new_pos, vel, box, cons,

@@ -53,6 +53,7 @@ import torch
 
 from .ops import (allpairs, cmap, ewald, ewald_fused, gb, mol_terms,
                   nonbonded, pair_plist, pair_tri, pme, term_forces, vsites)
+from . import trace
 from .system import System, resolve_device
 
 
@@ -515,53 +516,56 @@ class ForceEvaluator:
         ``full_list`` that list holds every tile pair's place and takes the
         wrapped frame, so it is never flagged."""
         s, t = self.system, self.t
-        pos = self.place_vsites(pos_raw)
+        with trace.span("forces.vsites"):
+            pos = self.place_vsites(pos_raw)
         cov = torch.zeros((), dtype=torch.bool, device=pos.device)
-        if self.pair_mode == "plist":
-            cap, nowrap = self.plist_cap_all, self.plist_nowrap
-            if full_list and pair_cache is None:
-                n_tiles = -(-s.n_atoms // self.pair_ts)
-                cap, nowrap = n_tiles * (n_tiles + 1) // 2, (False,) * 3
-            e_lj, e_coul_dir, e_corr, e14c, e14l, f_direct, cov = \
-                pair_plist.direct_space_plist(
-                    pos, box, t.charges, self.pair_tables, s.ewald_beta,
-                    s.r_cutoff, self.pair_ts, want_energy=want_energy,
-                    cache=pair_cache, plist_cap=cap, skin=self.skin,
-                    plist_sort=self.plist_sort, r_switch=s.r_switch,
-                    strict=self.strict_pairs, nowrap=nowrap,
-                    statics=self.statics)
-        elif self.mesh is not None:
-            if pair_cache is None:
-                pair_cache = self.make_pair_cache(pos_raw, box)
-            cov = pair_tri.band_coverage_bad(pos, box, pair_cache,
-                                             self.pair_ts, self.band_w,
-                                             s.r_cutoff)
-            e_lj, e_coul_dir, e_corr, e14c, e14l, f_direct, cov = \
-                pair_tri.banded_sweep_sharded(
-                    self.mesh, pos, box, t.charges, self.pair_tables,
-                    s.ewald_beta, s.r_cutoff, self.pair_ts, self.band_w,
-                    cache=pair_cache, want_energy=want_energy,
-                    r_switch=s.r_switch, flag=cov)
-            e_lj, e_coul_dir, e_corr, f_direct = pair_tri.residual_adjustment(
-                pos, box, t.charges, self.pair_tables, s.ewald_beta,
-                s.r_cutoff, e_lj, e_coul_dir, e_corr, f_direct,
-                r_switch=s.r_switch)
-        elif self.pair_mode == "band":
-            e_lj, e_coul_dir, e_corr, e14c, e14l, f_direct, cov = \
-                pair_tri.direct_space_band(
-                    pos, box, t.charges, self.pair_tables, s.ewald_beta,
-                    s.r_cutoff, self.pair_ts, self.band_w,
-                    want_energy=want_energy, cache=pair_cache,
-                    r_switch=s.r_switch, strict=self.strict_pairs,
-                    statics=self.statics)
-        else:
-            e_lj, e_coul_dir, e_corr, e14c, e14l, f_direct = \
-                allpairs.direct_space_dense(
-                    pos, box, t.charges, self.pair_tables, s.ewald_beta,
-                    s.r_cutoff, row_block=self.row_block,
-                    r_switch=s.r_switch)
+        with trace.span("forces.pairs"):
+            if self.pair_mode == "plist":
+                cap, nowrap = self.plist_cap_all, self.plist_nowrap
+                if full_list and pair_cache is None:
+                    n_tiles = -(-s.n_atoms // self.pair_ts)
+                    cap, nowrap = n_tiles * (n_tiles + 1) // 2, (False,) * 3
+                e_lj, e_coul_dir, e_corr, e14c, e14l, f_direct, cov = \
+                    pair_plist.direct_space_plist(
+                        pos, box, t.charges, self.pair_tables, s.ewald_beta,
+                        s.r_cutoff, self.pair_ts, want_energy=want_energy,
+                        cache=pair_cache, plist_cap=cap, skin=self.skin,
+                        plist_sort=self.plist_sort, r_switch=s.r_switch,
+                        strict=self.strict_pairs, nowrap=nowrap,
+                        statics=self.statics)
+            elif self.mesh is not None:
+                if pair_cache is None:
+                    pair_cache = self.make_pair_cache(pos_raw, box)
+                cov = pair_tri.band_coverage_bad(pos, box, pair_cache,
+                                                 self.pair_ts, self.band_w,
+                                                 s.r_cutoff)
+                e_lj, e_coul_dir, e_corr, e14c, e14l, f_direct, cov = \
+                    pair_tri.banded_sweep_sharded(
+                        self.mesh, pos, box, t.charges, self.pair_tables,
+                        s.ewald_beta, s.r_cutoff, self.pair_ts, self.band_w,
+                        cache=pair_cache, want_energy=want_energy,
+                        r_switch=s.r_switch, flag=cov)
+                e_lj, e_coul_dir, e_corr, f_direct = \
+                    pair_tri.residual_adjustment(
+                        pos, box, t.charges, self.pair_tables, s.ewald_beta,
+                        s.r_cutoff, e_lj, e_coul_dir, e_corr, f_direct,
+                        r_switch=s.r_switch)
+            elif self.pair_mode == "band":
+                e_lj, e_coul_dir, e_corr, e14c, e14l, f_direct, cov = \
+                    pair_tri.direct_space_band(
+                        pos, box, t.charges, self.pair_tables, s.ewald_beta,
+                        s.r_cutoff, self.pair_ts, self.band_w,
+                        want_energy=want_energy, cache=pair_cache,
+                        r_switch=s.r_switch, strict=self.strict_pairs,
+                        statics=self.statics)
+            else:
+                e_lj, e_coul_dir, e_corr, e14c, e14l, f_direct = \
+                    allpairs.direct_space_dense(
+                        pos, box, t.charges, self.pair_tables, s.ewald_beta,
+                        s.r_cutoff, row_block=self.row_block,
+                        r_switch=s.r_switch)
 
-        with torch.enable_grad():
+        with trace.span("forces.smooth"), torch.enable_grad():
             p = pos.detach().requires_grad_(True)
             terms = {k: fn(p)
                      for k, fn in self.smooth_terms(box).items()}
@@ -571,17 +575,18 @@ class ForceEvaluator:
             else:
                 grad_smooth = torch.zeros_like(pos)
         terms = {k: v.detach() for k, v in terms.items()}
-        t_terms, t_inc = (self.term_tables if want_energy
-                          else self.term_tables_force)
-        mol_types = self.mol_types if want_energy else self.mol_types_force
-        term_energies, f_terms = term_forces.energies_and_forces(
-            pos, box, t_terms, t_inc)
-        if mol_types:
-            mol_energies, f_mol = mol_terms.energies_and_forces(
-                pos, box, mol_types, s.n_atoms)
-            f_terms = f_terms + f_mol
-            for k, v in mol_energies.items():
-                term_energies[k] = term_energies.get(k, 0.0) + v
+        with trace.span("forces.terms"):
+            t_terms, t_inc = (self.term_tables if want_energy
+                              else self.term_tables_force)
+            mol_types = self.mol_types if want_energy else self.mol_types_force
+            term_energies, f_terms = term_forces.energies_and_forces(
+                pos, box, t_terms, t_inc)
+            if mol_types:
+                mol_energies, f_mol = mol_terms.energies_and_forces(
+                    pos, box, mol_types, s.n_atoms)
+                f_terms = f_terms + f_mol
+                for k, v in mol_energies.items():
+                    term_energies[k] = term_energies.get(k, 0.0) + v
         zero = torch.zeros((), dtype=pos.dtype, device=pos.device)
         for name in ("bond", "angle", "urey_bradley", "dihedral", "improper",
                      "drude", "thole", "exception_coul", "exception_lj"):
@@ -605,9 +610,10 @@ class ForceEvaluator:
             if af is not None:
                 terms[f"external_{i}"] = f(pos, box)
                 forces = forces + af(pos, box)
-        forces = vsites.redistribute_forces(
-            pos_raw, forces, t.vsite_index, t.vsite_parents,
-            t.vsite_origin_w, t.vsite_x_w, t.vsite_y_w, t.vsite_local)
+        with trace.span("forces.vsites"):
+            forces = vsites.redistribute_forces(
+                pos_raw, forces, t.vsite_index, t.vsite_parents,
+                t.vsite_origin_w, t.vsite_x_w, t.vsite_y_w, t.vsite_local)
         if return_cov:
             return terms, forces, cov
         return terms, forces

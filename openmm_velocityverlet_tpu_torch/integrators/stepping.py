@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from ..units import AVOGADRO, BOLTZ, PI
 from .nhchain import propagate_nh_chains
 from .vv import TG_ATOM, TG_COM, TG_DRUDE, IntegratorData
@@ -439,7 +440,11 @@ def apply_hardwall(pos, vel, tables):
     pair atom evaluates the shared bounce and takes its own update."""
     if tables is None:
         return pos, vel
-    t = tables
+    with trace.span("step.hardwall"):
+        return _hardwall(pos, vel, tables)
+
+
+def _hardwall(pos, vel, t):
     dmax, hw_scale, dt = t["dmax"], t["hw_scale"], t["dt"]
     psign, is_drude = t["psign"], t["is_drude"]
     m_self, m_part, mtot = t["m_self"], t["m_part"], t["mtot"]

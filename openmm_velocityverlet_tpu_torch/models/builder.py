@@ -16,6 +16,7 @@ from typing import Optional
 
 import numpy as np
 
+from .. import trace
 from ..ops.cmap import pack_cmap_maps
 from ..ops.ewald import ewald_parameters
 from ..system import System
@@ -186,6 +187,10 @@ class SystemBuilder:
     # --------------------------------------------------------- finalize
     def finalize(self, box, r_cutoff=None, use_pme=None,
                  ewald_tolerance=None) -> System:
+        with trace.span("setup.finalize"):
+            return self._finalize(box, r_cutoff, use_pme, ewald_tolerance)
+
+    def _finalize(self, box, r_cutoff, use_pme, ewald_tolerance) -> System:
         n = len(self.masses)
         if r_cutoff is not None:
             self.r_cutoff = float(r_cutoff)

@@ -18,6 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import trace
 from ..system import resolve_device
 from ..utils.pbc import minimum_image
 
@@ -352,46 +353,48 @@ def apply_position_constraints(pos_ref, pos_new, box, cons: ConstraintData,
                                inv_masses):
     """SHAKE: move pos_new so constrained distances equal their targets,
     along the directions of the constraint-satisfying pos_ref."""
-    if cons.n_constraints == 0:
-        return pos_new
-    if cons.use_clusters:
-        return solve_position_clusters(pos_ref, pos_new, box, cons)
-    i, j = cons.pairs[:, 0], cons.pairs[:, 1]
-    ref = minimum_image(pos_ref[i] - pos_ref[j], box)
-    d2 = cons.dist * cons.dist
-    pos = pos_new
-    for _ in range(cons.max_iterations):
-        delta = minimum_image(pos[i] - pos[j], box)
-        r2 = torch.sum(delta * delta, -1)
-        diff = r2 - d2
-        denom = 2.0 * cons.inv_mass_sum * torch.sum(delta * ref, -1)
-        denom = torch.where(torch.abs(denom) > 1e-12, denom,
-                            torch.full_like(denom, 1e-12))
-        pos = _apply_corrections(pos, cons, diff / denom, ref, inv_masses)
-        # host sync: the residual decides whether to iterate again
-        if float(torch.max(torch.abs(diff) / d2)) <= cons.tolerance:
-            break
-    return pos
+    with trace.span("step.shake"):
+        if cons.n_constraints == 0:
+            return pos_new
+        if cons.use_clusters:
+            return solve_position_clusters(pos_ref, pos_new, box, cons)
+        i, j = cons.pairs[:, 0], cons.pairs[:, 1]
+        ref = minimum_image(pos_ref[i] - pos_ref[j], box)
+        d2 = cons.dist * cons.dist
+        pos = pos_new
+        for _ in range(cons.max_iterations):
+            delta = minimum_image(pos[i] - pos[j], box)
+            r2 = torch.sum(delta * delta, -1)
+            diff = r2 - d2
+            denom = 2.0 * cons.inv_mass_sum * torch.sum(delta * ref, -1)
+            denom = torch.where(torch.abs(denom) > 1e-12, denom,
+                                torch.full_like(denom, 1e-12))
+            pos = _apply_corrections(pos, cons, diff / denom, ref, inv_masses)
+            # host sync: the residual decides whether to iterate again
+            if float(torch.max(torch.abs(diff) / d2)) <= cons.tolerance:
+                break
+        return pos
 
 
 def apply_velocity_constraints(pos, vel, box, cons: ConstraintData,
                                inv_masses):
     """RATTLE: project velocities so d/dt of each constrained distance is 0."""
-    if cons.n_constraints == 0:
+    with trace.span("step.rattle"):
+        if cons.n_constraints == 0:
+            return vel
+        if cons.use_clusters:
+            return solve_velocity_clusters(pos, vel, box, cons)
+        i, j = cons.pairs[:, 0], cons.pairs[:, 1]
+        ref = minimum_image(pos[i] - pos[j], box)
+        d2 = torch.sum(ref * ref, -1)
+        denom = cons.inv_mass_sum * d2
+        scale = 1.0 / torch.where(denom > 1e-12, denom,
+                                  torch.full_like(denom, 1e-12))
+        for _ in range(cons.max_iterations):
+            rv = torch.sum((vel[i] - vel[j]) * ref, -1)
+            vel = _apply_corrections(vel, cons, rv * scale, ref, inv_masses)
+            # host sync: relative velocity along the bond over its length
+            err = float(torch.max(torch.abs(rv) / torch.clamp(d2, min=1e-12)))
+            if err <= cons.tolerance:
+                break
         return vel
-    if cons.use_clusters:
-        return solve_velocity_clusters(pos, vel, box, cons)
-    i, j = cons.pairs[:, 0], cons.pairs[:, 1]
-    ref = minimum_image(pos[i] - pos[j], box)
-    d2 = torch.sum(ref * ref, -1)
-    denom = cons.inv_mass_sum * d2
-    scale = 1.0 / torch.where(denom > 1e-12, denom,
-                              torch.full_like(denom, 1e-12))
-    for _ in range(cons.max_iterations):
-        rv = torch.sum((vel[i] - vel[j]) * ref, -1)
-        vel = _apply_corrections(vel, cons, rv * scale, ref, inv_masses)
-        # host sync: relative velocity along the bond over its length
-        err = float(torch.max(torch.abs(rv) / torch.clamp(d2, min=1e-12)))
-        if err <= cons.tolerance:
-            break
-    return vel

@@ -1,0 +1,117 @@
+"""Spans: the port's own record of where a step's host time goes.
+
+    from openmm_velocityverlet_tpu_torch import trace
+    with trace.span("step.forces"):
+        ...
+
+A span does one of two things, chosen when it opens:
+
+* outside a profiler it adds one call and its host-clock duration
+  (``time.perf_counter_ns``) to a fixed, process-wide table, which
+  ``totals()`` reads.  A name's first call is kept apart as well: it pays
+  the kernels' load and the allocator's growth;
+* while a torch profiler records, it opens a range on the profiler's
+  timeline, where the kernels are, and leaves the table as it is (the
+  profiler slows the host several times over, so the table holds
+  real-speed time only).  The range is a CPU op
+  (``torch._C._profiler._RecordFunctionFast``), not a user annotation
+  (``torch.profiler.record_function``): kineto copies a user annotation
+  onto the device's timeline as a ``gpu_user_annotation`` spanning the
+  kernels launched inside it, which a reader of the trace's device events
+  would take for a kernel.  The ``step`` span carries the step number as
+  the range's argument (shown where the profiler records shapes).
+
+Every span's name is ``<layer>.<stage>`` (the step itself is ``step``) and
+is listed once, in ``SPANS``, with its layer.
+"""
+from __future__ import annotations
+
+import time
+from typing import NamedTuple
+
+import torch
+from torch._C._profiler import _RecordFunctionFast
+
+# name -> layer, from the entry point down
+SPANS = {
+    "setup.finalize": "system set-up",      # SystemBuilder.finalize
+    "context.init": "context set-up",       # Context.__init__
+    "loop.segment": "segment loop",         # one cache segment of step()
+    "loop.rebuild": "segment loop",         # a pair-cache rebuild
+    "loop.refit": "segment loop",           # a flagged pair list refitted
+    "loop.flag_read": "segment loop",       # the coverage flag's host read
+    "step": "step",                         # one integrator step
+    "step.forces": "step",                  # its force evaluation + extras
+    "forces.vsites": "virtual sites",       # placement and redistribution
+    "forces.pairs": "pair sweep",           # the direct-space sweep
+    "forces.smooth": "reciprocal",          # autograd terms, forward + grad
+    "forces.terms": "bonded and molecule terms",
+    "step.rattle": "constraints",           # each velocity projection
+    "step.shake": "constraints",            # each position solve
+    "step.thermostat": "thermostat",        # the TGNH block
+    "step.langevin": "thermostat",          # the OU map with its draws
+    "step.hardwall": "step",                # the Drude hard wall
+    "step.images": "step",                  # the image-charge sync
+    "baro.attempt": "barostat",             # one Monte Carlo volume move
+    "energy.query": "energy queries",       # Context._energy_query
+}
+
+# name -> [calls, total ns, first call's ns]
+_table = {name: [0, 0, 0] for name in SPANS}
+
+
+class Total(NamedTuple):
+    """A span's aggregate: its calls, their seconds, the first's seconds."""
+    count: int
+    total_s: float
+    first_s: float
+
+    @property
+    def steady_count(self) -> int:
+        """The calls after the first."""
+        return max(self.count - 1, 0)
+
+    @property
+    def steady_s(self) -> float:
+        """The seconds of the calls after the first."""
+        return self.total_s - self.first_s
+
+
+def totals() -> dict:
+    """A snapshot of the table: {name: Total}, every name of ``SPANS``."""
+    return {name: Total(c, t * 1e-9, f * 1e-9)
+            for name, (c, t, f) in _table.items()}
+
+
+class span:
+    """``with span(name[, step]):`` -- see the module doc.  ``name`` must
+    be a key of ``SPANS``."""
+    __slots__ = ("row", "name", "step", "t0", "rf")
+
+    def __init__(self, name: str, step: int | None = None):
+        self.row = _table[name]
+        self.name = name
+        self.step = step
+
+    def __enter__(self):
+        if torch.autograd._profiler_enabled():
+            self.rf = (_RecordFunctionFast(self.name) if self.step is None
+                       else _RecordFunctionFast(self.name, (),
+                                                {"step": self.step}))
+            self.rf.__enter__()
+        else:
+            self.rf = None
+            self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+            return False
+        dt = time.perf_counter_ns() - self.t0
+        row = self.row
+        if not row[0]:
+            row[2] = dt
+        row[0] += 1
+        row[1] += dt
+        return False
