@@ -2,13 +2,15 @@
 ``openmm_velocityverlet_tpu/ops/mol_terms.py``).
 
 Molecules that are contiguous copies of a repeated species share one
-signature ("type"); per type, positions are a reshape of ``pos`` into
-(m, apm, 3), slot coordinates come from one 0/1 selection matrix product,
-the term math of ``term_forces`` runs on (m, nt) component tensors, and the
-per-atom forces come back through the transposed selection product.  The
-selection products are float32 matrix products of 0/1 matrices, exact with
-TF32 off.  ``build_mol_tables`` is the JAX module's host-numpy builder,
-unchanged.
+signature ("type"); per type, positions are one gather of the type's atoms
+into (m, apm, 3), slot coordinates come from one 0/1 selection matrix
+product, the term math of ``term_forces`` runs on (m, nt) component tensors,
+and the per-atom forces come back through the transposed selection product
+and one indexed copy into (N, 3).  So a call launches a fixed number of ops a
+type, however many runs its molecules form (water laid out O, D, H, H, M has
+one run a molecule).  The selection products are float32 matrix products of
+0/1 matrices, exact with TF32 off.  ``build_mol_tables`` is the JAX module's
+host-numpy builder, unchanged.
 """
 from __future__ import annotations
 
@@ -27,6 +29,8 @@ class MolType(NamedTuple):
     select: np.ndarray       # (apm, S_tot) one-hot slot-selection matrix
     offsets: tuple           # per kind: column offset into S_tot
     n_mol: int
+    idx: object = None       # (n_mol*apm,) int64 atoms of ``runs``, in order;
+                             # set by ``types_to``
 
 
 def _molecule_ranges(particle_mol_id, n_atoms):
@@ -221,17 +225,21 @@ def build_mol_tables(system, exc_mask=None):
 
 
 def types_to(types, device):
-    """MolTypes with ``select`` and every per-kind parameter table as
-    tensors on ``device``."""
+    """MolTypes with ``select``, every per-kind parameter table and the atom
+    index ``idx`` of their runs as tensors on ``device``."""
     out = []
     for t in types:
         kinds = tuple(
             (kind, li, torch.as_tensor(pr, device=device),
              None if wh is None else torch.as_tensor(wh, device=device))
             for kind, li, pr, wh in t.kinds)
+        idx = np.concatenate([np.arange(st, st + cnt * t.apm)
+                              for st, cnt in t.runs])
         out.append(t._replace(kinds=kinds,
                               select=torch.as_tensor(t.select,
-                                                     device=device)))
+                                                     device=device),
+                              idx=torch.as_tensor(idx, dtype=torch.int64,
+                                                  device=device)))
     return out
 
 
@@ -245,13 +253,11 @@ def energies_and_forces(pos, box, types, n_atoms):
     def add_e(name, val):
         energies[name] = energies.get(name, zero) + val
 
-    pieces = []                            # (start, length, (L,3) block)
+    forces = torch.zeros((n_atoms, 3), dtype=pos.dtype, device=pos.device)
     for t in types:
-        segs = [pos[st:st + cnt * t.apm].reshape(cnt, t.apm, 3)
-                for st, cnt in t.runs]
-        P = segs[0] if len(segs) == 1 else torch.cat(segs, 0)
+        m_cnt = t.n_mol
+        P = pos[t.idx].reshape(m_cnt, t.apm, 3)
         S = t.select                       # (apm, S_tot)
-        m_cnt = P.shape[0]
         P3 = P.permute(2, 0, 1).reshape(3 * m_cnt, t.apm)
         comp3 = torch.matmul(P3, S).reshape(3, m_cnt, -1)
         comp = [comp3[0], comp3[1], comp3[2]]              # (m, S_tot) each
@@ -290,23 +296,5 @@ def energies_and_forces(pos, box, types, n_atoms):
         G3 = torch.cat([torch.cat(gl, dim=1) for gl in grads_flat], dim=0)
         F3 = torch.matmul(G3, S.t()).reshape(3, m_cnt, t.apm)
         F = -F3.permute(1, 2, 0).reshape(-1, 3)           # (m*apm, 3)
-        o = 0
-        for st, cnt in t.runs:
-            pieces.append((st, cnt * t.apm, F[o:o + cnt * t.apm]))
-            o += cnt * t.apm
-
-    # stitch per-run force blocks (+ zero gaps) into (N,3)
-    pieces.sort(key=lambda x: x[0])
-    out = []
-    cur = 0
-    for st, ln, blk in pieces:
-        if st > cur:
-            out.append(torch.zeros((st - cur, 3), dtype=pos.dtype,
-                                   device=pos.device))
-        out.append(blk)
-        cur = st + ln
-    if cur < n_atoms:
-        out.append(torch.zeros((n_atoms - cur, 3), dtype=pos.dtype,
-                               device=pos.device))
-    forces = out[0] if len(out) == 1 else torch.cat(out, 0)
+        forces.index_copy_(0, t.idx, F)    # types' atoms are disjoint
     return energies, forces

@@ -155,6 +155,112 @@ def test_mol_terms_match_jax():
                                atol=F_ATOL)
 
 
+def _interleaved_system(builder_cls, chains_at, n_water=6, n_chain=3,
+                        seed=5):
+    """Waters laid out O, D, H, H, M whose only term is the O-D Drude spring
+    (a one-molecule run each, between term-less atoms) and a block of
+    four-atom chains back to back (one long run), the block placed
+    ``chains_at`` the first, between or after the waters."""
+    b = builder_cls()
+    rng = np.random.default_rng(seed)
+    box = np.array([3.0, 3.1, 2.9])
+    pos = []
+
+    def water():
+        o, d, h1, h2, m = (b.add_particle(mass, charge=q, lj_type=1)
+                           for mass, q in ((15.2, 1.2), (0.4, -1.0),
+                                           (1.0, 0.5), (1.0, 0.5),
+                                           (0.0, -1.2)))
+        c = rng.uniform(0.3, 2.6, 3)
+        pos.extend([c, c + rng.normal(0, 0.01, 3), c + [0.09, 0, 0],
+                    c + [0, 0.09, 0], c + [0.01, 0.01, 0]])
+        b.add_drude(d, o, -1, -1, -1, -1.0, 0.00097, 1.0, 1.0)
+
+    def chain():
+        a = [b.add_particle(12.0, charge=0.1, lj_type=0) for _ in range(4)]
+        d = b.add_particle(0.4, charge=-0.5, lj_type=1)
+        c = rng.uniform(0.3, 2.4, 3)
+        pts = c + np.array([[0, 0, 0], [0.15, 0, 0], [0.2, 0.14, 0],
+                            [0.35, 0.15, 0.08]]) + rng.normal(0, 0.01, (4, 3))
+        pos.extend(list(pts) + [pts[1] + rng.normal(0, 0.008, 3)])
+        b.add_bond(a[0], a[1], 0.15, 2e5)
+        b.add_bond(a[1], a[2], 0.15, 2e5)
+        b.add_bond(a[2], a[3], 0.15, 2e5)
+        b.add_angle(a[0], a[1], a[2], 1.9, 400.0)
+        b.add_urey_bradley(a[0], a[2], 0.25, 3e4)
+        b.add_dihedral(a[0], a[1], a[2], a[3], 3, 0.3, 2.5)
+        b.add_improper(a[1], a[0], a[2], a[3], 5.0)
+        b.add_drude(d, a[1], a[0], a[2], a[3], -0.5, 0.0012, 1.1, 0.9)
+
+    split = {"first": 0, "between": n_water // 2, "last": n_water}[chains_at]
+    for _ in range(split):
+        water()
+    for _ in range(n_chain):
+        chain()
+    for _ in range(split, n_water):
+        water()
+    b.set_lj_from_type_params([0.32, 0.1], [0.5, 0.0])
+    return (b.finalize(box, r_cutoff=1.0, use_pme=True),
+            np.array(pos, np.float32), box.astype(np.float32))
+
+
+@pytest.mark.parametrize("chains_at", ["first", "between", "last"])
+def test_mol_terms_interleaved_match_jax(chains_at):
+    js, pos, box = _interleaved_system(jpkg.SystemBuilder, chains_at)
+    ps, pos2, _ = _interleaved_system(tpkg.SystemBuilder, chains_at)
+    np.testing.assert_array_equal(pos, pos2)
+    jt, jleft = jmol.build_mol_tables(js)
+    pt, pleft = tmol.build_mol_tables(ps)
+    assert sorted((t.apm, len(t.runs), t.n_mol) for t in pt) == [(2, 6, 6),
+                                                                 (5, 1, 3)]
+    assert not any(np.any(v) for v in pleft.values())
+    e_j, f_j = jax.jit(lambda p, bx: jmol.energies_and_forces(
+        p, bx, jt, js.n_atoms))(jnp.asarray(pos), jnp.asarray(box))
+    tt = tmol.types_to(pt, "cpu")
+    e_t, f_t = tmol.energies_and_forces(_t(pos), _t(box), tt, ps.n_atoms)
+    _cmp_energies(e_t, e_j)
+    np.testing.assert_allclose(f_t.numpy(), np.asarray(f_j), rtol=F_RTOL,
+                               atol=F_ATOL)
+    # every term on the sparse path: independent code, same forces
+    pterms, pinc, _ = ttf.build_term_tables(ps)
+    _, f_s = ttf.energies_and_forces(_t(pos), _t(box),
+                                     *ttf.tables_to(pterms, pinc, "cpu"))
+    np.testing.assert_allclose(f_t.numpy(), f_s.numpy(), rtol=F_RTOL,
+                               atol=F_ATOL)
+    term_less = np.ones(ps.n_atoms, bool)
+    for t in tt:
+        term_less[t.idx.numpy()] = False
+    assert term_less.sum() == 6 * 3       # each water's H, H and M
+    assert not f_t.numpy()[term_less].any()
+
+
+_VIEW_OPS = {"aten::view", "aten::reshape", "aten::_reshape_alias",
+             "aten::_unsafe_view", "aten::slice", "aten::select",
+             "aten::narrow", "aten::permute", "aten::t", "aten::transpose",
+             "aten::expand", "aten::as_strided", "aten::unsqueeze",
+             "aten::squeeze", "aten::alias", "aten::detach"}
+
+
+def test_mol_terms_ops_per_call_independent_of_runs():
+    """A call launches the same ops for 4 one-molecule runs as for 400."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def ops(n_water):
+        ps, pos, box = _interleaved_system(tpkg.SystemBuilder, "last",
+                                           n_water=n_water, n_chain=0)
+        pt, _ = tmol.build_mol_tables(ps)
+        assert [(t.apm, len(t.runs)) for t in pt] == [(2, n_water)]
+        tt, p, bx = tmol.types_to(pt, "cpu"), _t(pos), _t(box)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            tmol.energies_and_forces(p, bx, tt, ps.n_atoms)
+        names = [ev.name for ev in prof.events()
+                 if ev.name.startswith("aten::")]
+        return sorted(n for n in names if n not in _VIEW_OPS)
+
+    few, many = ops(4), ops(400)
+    assert few and few == many
+
+
 def test_nonbonded_small_terms_match_jax():
     js, ps, pos, box = _both()
     q = np.asarray(js.charges)
