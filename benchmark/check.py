@@ -16,31 +16,27 @@ Drude's short distance is far coarser, and is not what the step runs.)
   within float32 rounding of the cutoff (a float32 distance may put such a
   pair on either side), over the root mean square of the reference's atom
   forces.
-* ``step_gap.pos`` / ``.vel``: the reference's float64 middle-scheme step
-  (kick, RATTLE, TGNH, drift, SHAKE, hard wall) from each recorded state,
-  with its own forces, against the port's next state: the widest gap of an
-  atom's displacement over the root mean square displacement, and of an
-  atom's new velocity over the root mean square velocity.  The force's
-  share of one step is too small for these to see a force error the size
-  of the control's; the force gaps see that.
-* On the port's window-end state, the trajectory's: ``constraint_rel``,
-  the widest relative deviation of a constraint (the hard wall moves a
-  Drude's parent after SHAKE, so it is not the solver's tolerance);
-  ``drude_nm``, the widest Drude distance, which the wall holds at the
-  configuration's 0.02 nm; ``temp_drude_k``, the Drude pairs' relative
-  kinetic temperature, whose target is 1 K.  (The molecules' temperature
-  is not compared: at the window's end it still carries the heat of the
-  lattice start, by an amount that follows the number of steps the
-  machine's speed fits into the window.  A thermostat left out shows in
-  the step gaps instead, since the chains are far from rest there.)
+* ``step_gap.pos`` / ``.vel``: the reference's float64 step (for the
+  water, the middle scheme: kick, RATTLE, TGNH, drift, SHAKE, hard wall)
+  from each recorded state, with its own forces, against the port's next
+  state: the widest gap of an atom's displacement over the root mean
+  square displacement, and of an atom's new velocity over the root mean
+  square velocity.  The force's share of one step is too small for these
+  to see a force error the size of the control's; the force gaps see
+  that.
+* A configuration's reference (``benchmark/references/<name>.py``, its
+  ``build(t, traffic, device, control=False)``) supplies the forces, the
+  step and the numbers of its own, read on the port's window-end state
+  (its ``numbers``), and any limit its configuration states itself (its
+  ``stated_limits``).  Every other number is held to the limit of the same
+  name in ``benchmark/limits/<cell>.json``; a number with no limit is not
+  correct.
 """
 from __future__ import annotations
 
 import math
 
 import torch
-
-from .reference import Reference
 
 CHECK_STEPS = 2
 
@@ -96,27 +92,14 @@ def step_gaps(ref, before, after, f_ref):
             relative_gap(ref, after["vel"], vel))
 
 
-def trajectory(ref, s):
-    """The window-end state's numbers: (constraint_rel, drude_nm,
-    temp_drude_k)."""
-    x = s["pos"] + s["pos_err"]
-    i, j = ref.cons[:, 0], ref.cons[:, 1]
-    r = torch.sqrt(torch.sum(ref.mi(x[i] - x[j]) ** 2, -1))
-    d = torch.sqrt(ref.cons_d2)
-    dr = x[ref.drudes[:, 0]] - x[ref.drudes[:, 1]]
-    return (float(torch.max(torch.abs(r - d) / d)),
-            float(torch.sqrt(torch.sum(dr * dr, 1)).max()),
-            ref.drude_temperature(s["vel"]))
-
-
-def numbers(t, start, end, limits, device, control=False):
+def numbers(reference, t, traffic, start, end, limits, device,
+            control=False):
     """Every compared number as (name, value, limit), and with ``control``
-    the control's readings of the force gaps as {name: value}: the
-    reference put in the port's place in float32 with its products in
-    TF32."""
-    ref = Reference(t, device)
-    ctl_ref = Reference(t, device, dtype=torch.float32,
-                        control=True) if control else None
+    the control's readings of the force gaps as {name: value}.
+    ``reference`` is the configuration's reference module."""
+    ref = reference.build(t, traffic, device)
+    ctl_ref = (reference.build(t, traffic, device, control=True)
+               if control else None)
     values, ctl = {}, {}
     pos_gaps, vel_gaps = [], []
     for name, rec in (("force_gap.start", start), ("force_gap.end", end)):
@@ -136,11 +119,8 @@ def numbers(t, start, end, limits, device, control=False):
             ctl[name] = max(ctl_gaps)
     values["step_gap.pos"] = max(pos_gaps)
     values["step_gap.vel"] = max(vel_gaps)
-    (values["constraint_rel"], values["drude_nm"],
-     values["temp_drude_k"]) = trajectory(ref, end["states"][0])
-    # the wall's distance is the configuration's own limit
-    limits = dict(limits, drude_nm=float(
-        t["integrator"]["max_drude_distance_nm"]))
+    values.update(ref.numbers(end["states"][0]))
+    limits = dict(limits, **ref.stated_limits())
     rows = [(name, value, limits.get(name)) for name, value in values.items()]
     return rows, ctl
 

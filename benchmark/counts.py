@@ -6,15 +6,12 @@ the same whatever implements the term.
 * Pairs: every pair i < j within the cutoff under the minimum image;
   ``PAIR_OPS`` float32 operations each.  Massless virtual sites count:
   their forces move to their parents.
-* Exact-k Ewald: the distinct modes of the k lattice (half of
-  (2 kx + 1)(2 ky + 1)(2 kz + 1) - 1, since S(-k) is conj S(k)) times the
-  charged atoms, at ``B4_OPS`` for the structure factor and ``B5_OPS`` for
-  the forces per (atom, mode).
+* The reciprocal route: its module's count (``ops`` of
+  ``benchmark/routes/<recip>.py``), beside its lattice or grid.
 * The bonded terms, constraints and thermostat are O(N) and left out.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 # NVIDIA H100 SXM data sheet: FP32 outside the tensor cores, HBM3 rate
@@ -24,11 +21,6 @@ PEAK_BYTES = 3.35e12
 # pair kernels (rsqrtf, rintf and min/max count one each): minimum image
 # 12, r^2 5, qq 1, LJ 14, erfc polynomial 20, Coulomb 5, masks and sums 13
 PAIR_OPS = 70
-# float32 operations per (atom, k) of the factorised exact-k sum (the k list
-# is a lattice, so e^{i k.r} = e_x e_y e_z with q folded in once a column):
-# the phase 6 and its sum into S 2; the forces' g = a c - b s 3, G += g 1,
-# Gz += g nz 2.  A multiply-add counts 2.
-B4_OPS, B5_OPS = 8, 12
 
 
 def cutoff_pairs(pos, box, r_cutoff, block=1024):
@@ -47,16 +39,6 @@ def cutoff_pairs(pos, box, r_cutoff, block=1024):
     return total
 
 
-def kspace_modes(kmax):
-    """Distinct nonzero modes of the |n_a| <= kmax_a lattice."""
-    a, b, c = (2 * int(k) + 1 for k in kmax)
-    return (a * b * c - 1) // 2
-
-
-def ewald_ops(kmax, n_charged):
-    return kspace_modes(kmax) * n_charged * (B4_OPS + B5_OPS)
-
-
 def b1_bytes(n_atoms):
     """Bytes a pair sweep must move at least: positions, charges and types
     read once (float32 x 3, float32, int32), forces written once."""
@@ -69,12 +51,8 @@ def bound_s(ops, n_bytes):
     return max(ops / PEAK_FP32, n_bytes / PEAK_BYTES)
 
 
-def step_work(system, pos, box, recip):
+def step_work(system, pos, box, recip_ops):
     """(pair count, float32 operations) a step's physics needs at ``pos``:
-    the pairs and, on the exact-k routes, the reciprocal sum."""
+    the pairs, and the reciprocal route's ``recip_ops``."""
     pairs = cutoff_pairs(pos, box, float(system.r_cutoff))
-    ops = pairs * PAIR_OPS
-    if recip in ("exact", "exact_fused") and system.ewald_beta > 0:
-        charged = int(np.sum(np.asarray(system.charges) != 0))
-        ops += ewald_ops(system.kmax, charged)
-    return pairs, ops
+    return pairs, pairs * PAIR_OPS + recip_ops

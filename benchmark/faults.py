@@ -2,17 +2,21 @@
 decides ``correct`` catches them: each breaks the port's timed path the
 way a later change might, and is undone when its ``with`` block closes.
 
-    with faults.planted("shake_off"):
+    with faults.planted("shake_off", cfg):
         run.run_cell(...)
 
-Read on the card by ``benchmark/readings.py --fault <name>`` (the upper
-readings of the step's and the trajectory's numbers) and on the CPU by
-the benchmark's tests.
+The six of ``NAMES`` hold for every configuration.  A configuration may
+name further faults in a module of its own, ``benchmark/extra_faults/
+<cfg["faults"]>.py``, with its ``NAMES`` and a ``planted(name)`` context
+manager.  Read on the card by ``benchmark/readings.py --fault <name>``
+(the upper readings of the step's and the trajectory's numbers) and on
+the CPU by the benchmark's tests.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib
 
 NAMES = ("state_unchanged", "half_forces_left_out", "one_force_altered",
          "shake_off", "thermostat_off", "dt_doubled")
@@ -37,10 +41,29 @@ def _force_fault(change, undo):
     _patch(ForceEvaluator, "energy_forces", energy_forces, undo)
 
 
+def extra(cfg):
+    """The configuration's own faults module, or None."""
+    name = (cfg or {}).get("faults")
+    return (importlib.import_module("benchmark.extra_faults." + name)
+            if name else None)
+
+
+def names(cfg=None):
+    """The faults a run of the configuration ``cfg`` can have planted."""
+    mod = extra(cfg)
+    return NAMES + (tuple(mod.NAMES) if mod is not None else ())
+
+
 @contextlib.contextmanager
-def planted(name):
+def planted(name, cfg=None):
+    if name not in NAMES:
+        if name not in names(cfg):
+            raise ValueError(f"no fault {name!r}; the faults are "
+                             f"{names(cfg)}")
+        with extra(cfg).planted(name):
+            yield
+        return
     import torch
-    from benchmark import port
     from openmm_velocityverlet_tpu_torch.context import Context
     from openmm_velocityverlet_tpu_torch.ops import constraints
     undo = []
@@ -62,16 +85,13 @@ def planted(name):
         _patch(Context, "_thermostat",
                lambda self, pos, vel, box, st: (vel, st), undo)
     elif name == "dt_doubled":
-        inner = port.build_context
+        inner = Context.__init__
 
-        def build_context(*args, **kwargs):
-            ctx, system = inner(*args, **kwargs)
-            ctx.data = dataclasses.replace(ctx.data, dt=2.0 * ctx.data.dt)
-            ctx._dt_inv_m = 2.0 * ctx._dt_inv_m
-            return ctx, system
-        _patch(port, "build_context", build_context, undo)
-    else:
-        raise ValueError(f"no fault {name!r}; the faults are {NAMES}")
+        def init(self, *args, **kwargs):
+            inner(self, *args, **kwargs)
+            self.data = dataclasses.replace(self.data, dt=2.0 * self.data.dt)
+            self._dt_inv_m = 2.0 * self._dt_inv_m
+        _patch(Context, "__init__", init, undo)
     try:
         yield
     finally:

@@ -1,19 +1,20 @@
 """Plain reference of the port's timed path, from a cell's tables, in plain
 PyTorch, written from the physics and from the reference plugin's
 published algorithm, not from the port: it imports nothing of the port
-and takes nothing the port derived (Ewald beta and kmax, the pair lists,
-the virtual sites' positions, the thermostat's degrees of freedom and
-chain masses are worked out here).
+and takes nothing the port derived (Ewald beta and the reciprocal's
+lattice or grid, the pair lists, the virtual sites' positions, the
+thermostat's degrees of freedom and chain masses are worked out here).
+A configuration's reference (``benchmark/references/<name>.py``) builds on
+it.
 
 Forces: LJ 12-6 (geometric sigma and epsilon, truncated at the cutoff)
 and Ewald direct space (exact erfc) over all pairs within the cutoff under
 the minimum image, swept in dense row blocks; the Ewald correction of
-every excluded pair; the exact-k reciprocal sum over all atoms on the
-port's k lattice (|n_a| <= kmax_a on each axis); the isotropic Drude
-springs.  Virtual sites are placed as the average of their parents, and
-their forces go back to the parents by the same weights.  The reciprocal
-sum is two matrix products (structure factor, then forces), so its
-precision is that of the products.
+every excluded pair; the reciprocal sum of the traffic's route
+(``benchmark/routes/<recip>.py``) and the self and neutralising terms;
+the isotropic Drude springs.  Virtual sites are placed as the average of
+their parents, and their forces go back to the parents by the same
+weights.
 
 The step (``step``) is the plugin's middle scheme with its temperature-
 grouped Nose-Hoover thermostat (TGNH): the centre-of-mass motion removed,
@@ -23,11 +24,13 @@ from the port's State, chain variables included: the chains are the
 port's state, which no independent run could reproduce.
 
 ``dtype=torch.float64`` is the reference.  The control is the same code in
-float32 with ``tf32=True``: the operands of every matrix product rounded
-to TF32's 10-bit mantissa, as the tensor cores take them.
+float32 with ``control=True``, under which the route rounds what its own
+precision below float32 would (TF32 products on the exact-k route, bf16
+operands on the PME route).
 """
 from __future__ import annotations
 
+import importlib
 import math
 
 import numpy as np
@@ -80,8 +83,8 @@ def colours(pairs, n):
 
 
 class Reference:
-    def __init__(self, t, device, dtype=torch.float64, control=False,
-                 rows=256):
+    def __init__(self, t, traffic, device, dtype=torch.float64,
+                 control=False, rows=256):
         self.dtype, self.device, self.control = dtype, device, control
         self.rows = rows
         f = dict(dtype=dtype, device=device)
@@ -101,8 +104,8 @@ class Reference:
         # edge, the rounding of a coordinate difference
         edge = float(np.max(t["box"]))
         self.cutoff_band = 8.0 * 2.0 ** (math.floor(math.log2(edge)) - 23)
-        self.beta, self.kmax = ewald_parameters(self.rc, t["ewald_tolerance"],
-                                                t["box"])
+        self.beta = ewald_parameters(self.rc, t["ewald_tolerance"],
+                                     t["box"])[0]
         # LJ pair tables by type: 4 eps_ij and sigma_ij^2
         sig, eps = np.asarray(t["lj_sigma"]), np.asarray(t["lj_epsilon"])
         nt = sig.shape[0]
@@ -133,15 +136,12 @@ class Reference:
         self.cons_d2 = torch.as_tensor(t["constraint_nm"], **f) ** 2
         self.rounds = [torch.as_tensor(r, **i64) for r in colours(cons, n)]
         self._thermostat_tables(t)
+        self.recip = importlib.import_module(
+            "benchmark.routes." + traffic["recip"]).Reciprocal(self, t)
 
     # ------------------------------------------------------------ helpers
     def mi(self, d):
         return d - self.box * torch.round(d / self.box)
-
-    def mm(self, a, b):
-        if self.control:
-            a, b = tf32(a), tf32(b)
-        return a @ b
 
     # ------------------------------------------------------------- forces
     def _excluded_block(self, s, e):
@@ -214,75 +214,13 @@ class Reference:
         out.index_add_(0, j, -f)
         return out, {"coul_excl_corr": torch.sum(e)}
 
-    def reciprocal(self, pos, block=4096):
-        """Exact-k Ewald over all atoms: S(k) by one product of the
-        (atoms, kx ky) phases with the (atoms, kz) phases, the forces by
-        the product of the (atoms, kz) phases with the weighted S."""
-        f = dict(dtype=self.dtype, device=self.device)
-        k0, k1, k2 = self.kmax
-        box = self.box
-        kx = 2.0 * math.pi * torch.arange(-k0, k0 + 1, **f) / box[0]
-        ky = 2.0 * math.pi * torch.arange(-k1, k1 + 1, **f) / box[1]
-        kz = 2.0 * math.pi * torch.arange(0, k2 + 1, **f) / box[2]
-        na, nb, nc = kx.shape[0], ky.shape[0], kz.shape[0]
-        k2v = (kx[:, None, None] ** 2 + ky[None, :, None] ** 2
-               + kz[None, None, :] ** 2)
-        # the kz > 0 half counts twice (S(-k) = conj S(k)); k = 0 not at all
-        half = torch.full_like(k2v, 2.0)
-        half[:, :, 0] = 1.0
-        half[k0, k1, 0] = 0.0
-        k2s = torch.where(half > 0, k2v, torch.ones_like(k2v))
-        w = (half * torch.exp(-k2s / (4.0 * self.beta ** 2)) / k2s
-             ).reshape(na * nb, nc)
-        vol = box[0] * box[1] * box[2]
-        pref = 2.0 * math.pi * ONE_4PI_EPS0 / vol
-
-        def phases(p):
-            cx, sx = torch.cos(p[:, 0:1] * kx), torch.sin(p[:, 0:1] * kx)
-            cy, sy = torch.cos(p[:, 1:2] * ky), torch.sin(p[:, 1:2] * ky)
-            re = (cx[:, :, None] * cy[:, None, :]
-                  - sx[:, :, None] * sy[:, None, :]).reshape(-1, na * nb)
-            im = (sx[:, :, None] * cy[:, None, :]
-                  + cx[:, :, None] * sy[:, None, :]).reshape(-1, na * nb)
-            z = p[:, 2:3] * kz
-            return re, im, torch.cat([torch.cos(z), torch.sin(z)], 1)
-
-        n = pos.shape[0]
-        prod = torch.zeros((2 * na * nb, 2 * nc), **f)
-        for s in range(0, n, block):
-            re, im, ez = phases(pos[s:s + block])
-            qb = self.q[s:s + block, None]
-            prod = prod + self.mm(torch.cat([qb * re, qb * im], 1).t(), ez)
-        ab = na * nb
-        s_re = prod[:ab, :nc] - prod[ab:, nc:]
-        s_im = prod[:ab, nc:] + prod[ab:, :nc]
-        energy = pref * torch.sum(w * (s_re * s_re + s_im * s_im))
-        # F_i = 2 pref q_i sum_k k w_k Im(conj(S_k) e^{i k.r_i})
-        kxy = torch.stack([kx[:, None].expand(na, nb).reshape(-1),
-                           ky[None, :].expand(na, nb).reshape(-1)], 1)
-        h_re, h_im = w * s_re, -w * s_im          # w conj(S), (AB, C)
-        blocks = []
-        for scale in (None, kz):
-            hr = h_re if scale is None else h_re * scale
-            hi = h_im if scale is None else h_im * scale
-            blocks.append(torch.cat([torch.cat([hr.t(), hi.t()], 1),
-                                     torch.cat([-hi.t(), hr.t()], 1)], 0))
-        hmat = torch.cat(blocks, 1)                # (2C, 4AB)
-        out = torch.empty_like(pos)
-        for s in range(0, n, block):
-            re, im, ez = phases(pos[s:s + block])
-            u = self.mm(ez, hmat)
-            u_re, u_im = u[:, :ab], u[:, ab:2 * ab]
-            uz_re, uz_im = u[:, 2 * ab:3 * ab], u[:, 3 * ab:]
-            v_im = re * u_im + im * u_re
-            vz_im = re * uz_im + im * uz_re
-            qb = 2.0 * pref * self.q[s:s + block, None]
-            out[s:s + block] = qb * torch.cat(
-                [v_im @ kxy, torch.sum(vz_im, 1, keepdim=True)], 1)
+    def self_energy(self):
+        """The Ewald self term and the neutralising background's."""
+        vol = self.box[0] * self.box[1] * self.box[2]
         self_e = -ONE_4PI_EPS0 * self.beta / SQRT_PI * torch.sum(self.q ** 2)
         back = (-ONE_4PI_EPS0 * math.pi / (2.0 * self.beta ** 2 * vol)
                 * torch.sum(self.q) ** 2)
-        return out, {"coul_recip": energy, "coul_self": self_e + back}
+        return self_e + back
 
     def bonded_energy(self, pos):
         """The Drude springs, a function whose force autograd takes."""
@@ -305,9 +243,10 @@ class Reference:
         pos = self.place_vsites(pos)
         f_dir, e = self.direct(pos)
         f_exc, e2 = self.excluded(pos)
-        f_rec, e3 = self.reciprocal(pos)
+        f_rec, e3 = self.recip(pos)
         e.update(e2)
         e.update(e3)
+        e["coul_self"] = self.self_energy()
         with torch.enable_grad():
             p = pos.detach().requires_grad_(True)
             eb = self.bonded_energy(p)

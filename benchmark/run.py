@@ -2,16 +2,26 @@
 
     python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-A cell names a configuration (``benchmark/configs/<config>.json``, whose
-``layout`` names the numpy builder of its tables in
-``benchmark/layouts/``) and a traffic mix (``benchmark/traffic/<traffic>.json``:
-the route and the segment length).  A per-layer
+A cell names a configuration (``benchmark/configs/<config>.json``) and a
+traffic mix (``benchmark/traffic/<traffic>.json``: the reciprocal route
+``recip`` and the segment length).  The configuration names its roles,
+each a module found by that name: its ``layout`` (the numpy builder of
+its tables, ``benchmark/layouts/``), its ``wiring`` (the hand-over of the
+tables to the port's public API, ``benchmark/wirings/``), its
+``reference`` (plain torch, ``benchmark/references/``) and, where it has
+any beyond the six of ``faults.py``, its ``faults``
+(``benchmark/extra_faults/``); its ``small`` keys give the size of the
+CPU tests.  The traffic's route names ``benchmark/routes/<recip>.py``: the
+reference's reciprocal sum on that route and its work count.  A per-layer
 metric is the reader ``benchmark/metrics/<name>.py``; a cell's limits of
 ``correct`` are ``benchmark/limits/<cell>.json``.  Nothing here is edited
-to add a cell or a metric.
+to add a configuration, a route, a cell or a metric.  A cell whose files
+are all in place but that the benchmark does not measure yet is listed in
+``benchmark/queued.json``: it runs here and in the tests as any other, and
+has no per-layer metric until BENCHMARK.json names it.
 
-A run: build the tables from ``--seed``; hand them to the port
-(``benchmark/port.py``); run the port's first ``CHECK_STEPS`` steps one by
+A run: build the tables from ``--seed``; hand them to the port through
+the wiring; run the port's first ``CHECK_STEPS`` steps one by
 one, recording each state, and one segment (set-up, ``setup_s`` from
 process start); then call
 ``Context.step(segment_steps)`` until ``--seconds`` have passed, ending in
@@ -91,11 +101,35 @@ def load_file_module(path):
     return mod
 
 
+def queued_cells():
+    """The cells of ``benchmark/queued.json``: each with its files in
+    place, and not in BENCHMARK.json yet."""
+    return load_json(HERE, "queued.json")["workloads"]
+
+
 def cell_spec(bench, workload):
-    for w in bench["workloads"]:
+    """The entry of a cell of BENCHMARK.json or, failing that, of the
+    queued cells."""
+    for w in bench["workloads"] + queued_cells():
         if w["name"] == workload:
             return w
-    raise SystemExit(f"no workload {workload!r} in BENCHMARK.json")
+    raise SystemExit(f"no workload {workload!r} in BENCHMARK.json or "
+                     f"benchmark/queued.json")
+
+
+def cell_data(bench, workload, config_override=None):
+    """(configuration, traffic) of a cell, the configuration's keys
+    replaced by ``config_override``."""
+    spec = cell_spec(bench, workload)
+    cfg = load_json(HERE, "configs", spec["config"] + ".json")
+    cfg.update(config_override or {})
+    return cfg, load_json(HERE, "traffic", spec["traffic"] + ".json")
+
+
+def role(kind, name):
+    """The module ``benchmark/<kind>/<name>.py``: a configuration's layout,
+    wiring, reference or faults, or a traffic's route."""
+    return importlib.import_module(f"benchmark.{kind}.{name}")
 
 
 def forbidden_modules():
@@ -240,16 +274,13 @@ def run_cell(workload, seed, seconds, trace, device="cuda", control=False,
     """One run of a cell; returns the result dict (its ``checks`` last).
     ``config_override`` replaces configuration keys (the tests' small
     sizes); ``control`` adds the control's readings under
-    ``control_readings``; the window lasts at least ``min_steps`` steps
+    ``control_readings`` and, under ``control_correct``, whether they keep
+    to the limits of the same names, as the port's must; the window lasts at least ``min_steps`` steps
     (the tests' runs on the CPU)."""
     import torch
     log = log or (lambda msg: print(msg, file=sys.stderr, flush=True))
     bench = bench or load_json(ROOT, "BENCHMARK.json")
-    spec = cell_spec(bench, workload)
-    cfg = load_json(HERE, "configs", spec["config"] + ".json")
-    cfg.update(config_override or {})
-    traffic = load_json(HERE, "traffic", spec["traffic"] + ".json")
-    layout = importlib.import_module("benchmark.layouts." + cfg["layout"])
+    cfg, traffic = cell_data(bench, workload, config_override)
     limits_path = os.path.join(HERE, "limits", workload + ".json")
     limits = ({k: v["limit"] for k, v in load_json(limits_path).items()}
               if os.path.exists(limits_path) else {})
@@ -257,10 +288,10 @@ def run_cell(workload, seed, seconds, trace, device="cuda", control=False,
     # one host thread: the step's host work is the launches, and idle
     # worker threads only add to the host's noise
     torch.set_num_threads(1)
-    from benchmark import port
 
-    t = layout.tables(cfg, seed)
-    ctx, system = port.build_context(t, traffic, device)
+    t = role("layouts", cfg["layout"]).tables(cfg, seed)
+    ctx, system = role("wirings", cfg["wiring"]).build_context(
+        t, traffic, device)
     segment = int(traffic["segment_steps"])
     dt = float(t["integrator"]["dt_ps"])
     start = check.record_steps(ctx)
@@ -272,18 +303,21 @@ def run_cell(workload, seed, seconds, trace, device="cuda", control=False,
 
     c0 = counters(ctx)
     steps = 0
-    marks = []
+    marks, rebuilds = [], [ctx.rebuilds]
     t0 = time.perf_counter()
     while True:
         ctx.step(segment)
         steps += segment
         sync(device)
         marks.append(time.perf_counter() - t0)
+        rebuilds.append(ctx.rebuilds)
         if marks[-1] >= seconds and steps >= min_steps:
             break
     window_s = marks[-1]
     log("[bench] segment seconds " + " ".join(
         f"{b - a:.3f}" for a, b in zip([0.0] + marks, marks)))
+    log("[bench] segment rebuilds " + " ".join(
+        str(b - a) for a, b in zip(rebuilds, rebuilds[1:])))
     c1 = counters(ctx)
     delta = {k: c1[k] - c0[k] for k in c0}
     ns_per_day = steps * dt * NS_PER_PS / window_s * 86400.0
@@ -309,8 +343,9 @@ def run_cell(workload, seed, seconds, trace, device="cuda", control=False,
         prof = (profile_segment(ctx, PROFILE_STEPS, device)
                 if device.type == "cuda" else None)
         pos = ctx.evaluator.place_vsites(ctx.state.pos)
-        pairs, ops = counts.step_work(system, pos, ctx.state.box,
-                                      ctx.evaluator.recip_method)
+        pairs, ops = counts.step_work(
+            system, pos, ctx.state.box,
+            role("routes", traffic["recip"]).ops(t))
         r = types.SimpleNamespace(
             steps=steps, window_s=window_s, counters=delta, profile=prof,
             work=dict(pairs=pairs, ops=ops), n_atoms=system.n_atoms,
@@ -336,7 +371,8 @@ def run_cell(workload, seed, seconds, trace, device="cuda", control=False,
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    rows, ctl = check.numbers(t, start, end, limits, device,
+    rows, ctl = check.numbers(role("references", cfg["reference"]), t,
+                              traffic, start, end, limits, device,
                               control=control)
     correct = check.is_correct(rows)
     result = dict(correct=correct, attempted=len(rows),
@@ -347,6 +383,9 @@ def run_cell(workload, seed, seconds, trace, device="cuda", control=False,
         result["breakdown"] = breakdown
     if control:
         result["control_readings"] = ctl
+        limit = {name: lim for name, _, lim in rows}
+        result["control_correct"] = check.is_correct(
+            [(name, v, limit.get(name)) for name, v in ctl.items()])
     result["checks"] = {name: dict(value=v, limit=lim)
                         for name, v, lim in rows}
     return result

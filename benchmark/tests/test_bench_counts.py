@@ -5,6 +5,7 @@ import os
 import sys
 import types
 
+import numpy as np
 import pytest
 import torch
 
@@ -12,6 +13,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
 
 from benchmark import counts, run  # noqa: E402
+from benchmark.routes import exact, pme  # noqa: E402
 
 
 def test_cutoff_pairs_minimum_image():
@@ -35,11 +37,12 @@ def test_cutoff_pairs_blocks_agree():
                                         ((2, 1, 0), 7), ((20, 20, 20),
                                                          34460)])
 def test_kspace_modes(kmax, modes):
-    assert counts.kspace_modes(kmax) == modes
+    assert exact.kspace_modes(kmax) == modes
 
 
 def test_ewald_ops_and_bytes():
-    assert counts.ewald_ops((1, 1, 1), 10) == 13 * 10 * 20
+    assert exact.ops(dict(charges=np.ones(10)), kmax=(1, 1, 1)) == \
+        13 * 10 * 20
     assert counts.b1_bytes(10) == 320
 
 
@@ -49,18 +52,40 @@ def test_bound_is_the_larger_limit():
     assert counts.bound_s(67e12, 6.7e12) == pytest.approx(2.0)
 
 
+def _tables(box):
+    return dict(charges=np.array([1.0, -1.0, 0.0]), box=np.array(box),
+                cutoff=1.2, ewald_tolerance=5e-4)
+
+
 def test_step_work_counts_ewald_on_the_exact_route_only():
-    system = types.SimpleNamespace(
-        masses=[1.0, 1.0, 0.0], charges=[1.0, -1.0, 0.0], r_cutoff=1.2,
-        ewald_beta=2.0, kmax=(1, 1, 1))
+    system = types.SimpleNamespace(r_cutoff=1.2)
     pos = torch.tensor([[0.0, 0.0, 0.0], [0.5, 0.0, 0.0], [0.0, 0.5, 0.0]])
     box = torch.tensor([10.0] * 3)
-    pairs, ops = counts.step_work(system, pos, box, "exact")
-    # all three pairs count, the massless site's too; two atoms are charged
+    t = _tables([10.0] * 3)
+    kmax = exact.kmax_of(t)
+    # two atoms are charged
+    pairs, ops = counts.step_work(system, pos, box, exact.ops(t))
+    # all three pairs count, the massless site's too
     assert pairs == 3
-    assert ops == 3 * counts.PAIR_OPS + 13 * 2 * 20
-    assert counts.step_work(system, pos, box, "pme")[1] == \
-        3 * counts.PAIR_OPS
+    assert ops == 3 * counts.PAIR_OPS + exact.kspace_modes(kmax) * 2 * 20
+    # the PME route's count carries no exact-k modes
+    k = 100 ** 3
+    assert counts.step_work(system, pos, box, pme.ops(t))[1] == \
+        3 * counts.PAIR_OPS + 2 * 2 * 64 * 2 + 5 * k * np.log2(k) + k
+
+
+def test_pme_ops_by_hand():
+    # a 4^3 grid (K = 64), 2 charged atoms, order 4: spread and gather
+    # 2 x 2 x 64 multiply-adds (512); two FFTs of 2.5 x 64 x 6 (1,920);
+    # the convolution 64
+    assert pme.ops(dict(charges=np.array([1.0, -1.0, 0.0])),
+                   dims=(4, 4, 4)) == 512 + 1920 + 64
+    # the cell's 4.914-nm box: a 50^3 grid, 19,500 charged sites
+    t = _tables([4.914] * 3)
+    t["charges"] = np.ones(19500)
+    k = 50 ** 3
+    assert pme.ops(t) == pytest.approx(19500 * 64 * 4 + 5 * k * np.log2(k)
+                                       + k)
 
 
 def test_union_seconds():

@@ -1,16 +1,20 @@
 """The harness on the CPU at small sizes: tables from the seed, the
 comparison that decides ``correct`` against runs with the timed path
-broken, the imports of the harness and its reference, the metric readers,
-and the refusal to run without a card.  ``test_card_run`` runs a cell on
-the card and skips without one.
+broken, the imports of the harness and its reference, the harness's
+sources naming no configuration or cell, the metric readers, and the
+refusal to run without a card.  ``test_card_run`` runs a cell on the card
+and skips without one.
 
     python -m pytest benchmark/tests -q
 """
 from __future__ import annotations
 
 import ast
+import contextlib
+import glob
 import json
 import os
+import re
 import subprocess
 import sys
 import types
@@ -27,39 +31,56 @@ from benchmark import faults, run  # noqa: E402
 from benchmark.layouts import swm4_ndp  # noqa: E402
 
 BENCH = run.load_json(ROOT, "BENCHMARK.json")
-# a small size of each cell's configuration (a thousand sites), and the
-# fewest steps a window takes there: enough for the thermostat to have
-# drawn the Drudes' starting heat
-SMALL = {"water19k.tgnh": {"n_molecules": 216, "cutoff_nm": 0.9}}
+# the benchmark's cells and the queued ones, whose files are in place
+WORKLOADS = BENCH["workloads"] + run.queued_cells()
+CELLS = sorted(w["name"] for w in WORKLOADS)
+# the fewest steps a window takes at a cell's small size: enough for the
+# thermostat to have drawn the Drudes' starting heat
 SMALL_STEPS = 100
 FORBIDDEN = {"jax", "jaxlib", "flax", "openmm_velocityverlet_tpu"}
+# the harness's own files, which name no configuration, role, traffic or
+# cell: they find each by the name in BENCHMARK.json
+HARNESS = ("run.py", "check.py", "readings.py", "faults.py", "counts.py")
+# the plain reference and the yardstick, which import nothing of the port
+REFERENCE_SOURCES = sorted(
+    ["reference.py", "check.py", "counts.py"]
+    + [os.path.relpath(p, run.HERE) for kind in ("references", "routes")
+       for p in glob.glob(os.path.join(run.HERE, kind, "*.py"))
+       if not p.endswith("__init__.py")])
+
+
+def config(workload):
+    return run.cell_data(BENCH, workload)[0]
+
+
+def small(workload):
+    """The small size of the cell's configuration (a thousand sites), from
+    its ``small`` keys."""
+    return config(workload)["small"]
 
 
 def test_every_cell_has_a_small_size():
-    assert sorted(SMALL) == sorted(w["name"] for w in BENCH["workloads"])
+    for workload in CELLS:
+        cfg = config(workload)
+        assert cfg["small"] and set(cfg["small"]) <= set(cfg), workload
 
 
 def small_run(workload, seed=5, **kw):
     return run.run_cell(workload, seed, 0.0, False, device="cpu",
-                        config_override=SMALL[workload], bench=BENCH,
+                        config_override=small(workload), bench=BENCH,
                         min_steps=SMALL_STEPS, log=lambda msg: None, **kw)
 
 
 def tables(workload, seed):
-    spec = run.cell_spec(BENCH, workload)
-    cfg = run.load_json(run.HERE, "configs", spec["config"] + ".json")
-    cfg.update(SMALL[workload])
-    layout = __import__("benchmark.layouts." + cfg["layout"],
-                        fromlist=["tables"])
-    return layout.tables(cfg, seed)
+    cfg = run.cell_data(BENCH, workload, small(workload))[0]
+    return run.role("layouts", cfg["layout"]).tables(cfg, seed)
 
 
 def traffic(workload):
-    return run.load_json(run.HERE, "traffic",
-                         run.cell_spec(BENCH, workload)["traffic"] + ".json")
+    return run.cell_data(BENCH, workload)[1]
 
 
-@pytest.mark.parametrize("workload", sorted(SMALL))
+@pytest.mark.parametrize("workload", CELLS)
 def test_tables_follow_the_seed(workload):
     a, b, c = (tables(workload, s) for s in (11, 11, 12))
     for key in ("positions", "velocities"):
@@ -68,6 +89,15 @@ def test_tables_follow_the_seed(workload):
     for key in ("masses", "charges", "exclusions", "drudes", "constraints",
                 "vsite_weights"):
         assert np.array_equal(a[key], c[key])
+
+
+def test_queued_cells_are_not_measured_yet():
+    measured = {w["name"] for w in BENCH["workloads"]}
+    for w in run.queued_cells():
+        assert w["name"] not in measured
+        assert run.cell_spec(BENCH, w["name"]) == w
+        assert os.path.exists(os.path.join(run.HERE, "limits",
+                                           w["name"] + ".json"))
 
 
 def test_seed_beyond_32_bits():
@@ -91,26 +121,69 @@ def test_water_geometry_and_density():
     assert np.sum(t["charges"]) == pytest.approx(0.0, abs=1e-9)
 
 
-@pytest.mark.parametrize("workload", sorted(SMALL))
+@pytest.mark.parametrize("workload", CELLS)
 def test_sound_run_is_correct(workload):
     res = small_run(workload)
     assert res["correct"], res["checks"]
     assert list(res)[-1] == "checks"
 
 
-@pytest.mark.parametrize("fault", faults.NAMES)
-@pytest.mark.parametrize("workload", sorted(SMALL))
+@pytest.mark.parametrize("workload,fault", [
+    (w, f) for w in CELLS for f in faults.names(config(w))])
 def test_broken_timed_path_is_not_correct(workload, fault):
-    with faults.planted(fault):
+    with faults.planted(fault, config(workload)):
         assert not small_run(workload)["correct"]
 
 
 def test_faults_are_undone():
     from openmm_velocityverlet_tpu_torch.context import Context
-    before = Context._thermostat
+    before = Context._thermostat, Context.__init__
     with faults.planted("thermostat_off"):
-        assert Context._thermostat is not before
-    assert Context._thermostat is before
+        assert Context._thermostat is not before[0]
+    with faults.planted("dt_doubled"):
+        assert Context.__init__ is not before[1]
+    assert (Context._thermostat, Context.__init__) == before
+
+
+def test_a_configuration_brings_its_own_faults(monkeypatch):
+    planted = []
+
+    @contextlib.contextmanager
+    def plant(name):
+        planted.append(name)
+        yield
+
+    mod = types.SimpleNamespace(NAMES=("image_sync_off",), planted=plant)
+    monkeypatch.setitem(sys.modules, "benchmark.extra_faults.slab", mod)
+    cfg = {"faults": "slab"}
+    assert faults.names(cfg) == faults.NAMES + ("image_sync_off",)
+    assert faults.names(config(CELLS[0])) == faults.NAMES
+    with faults.planted("image_sync_off", cfg):
+        assert planted == ["image_sync_off"]
+    with pytest.raises(ValueError):
+        with faults.planted("image_sync_off"):
+            pass
+
+
+def _words(source):
+    """Every word of a source, and each dotted word's parts."""
+    words = set(re.findall(r"[A-Za-z0-9_]+(?:[.-][A-Za-z0-9_]+)*", source))
+    return words | {p for w in words for p in re.split(r"[.-]", w)}
+
+
+@pytest.mark.parametrize("name", HARNESS)
+def test_harness_names_no_configuration_or_cell(name):
+    names = set()
+    for w in WORKLOADS:
+        names |= {w["name"], w["config"], w["traffic"]}
+        cfg = config(w["name"])
+        names |= {cfg[k] for k in ("layout", "wiring", "reference", "faults")
+                  if k in cfg}
+    for c in BENCH["configs"]:
+        names |= {c["name"], os.path.basename(c["file"])[:-5]}
+    with open(os.path.join(run.HERE, name)) as fh:
+        found = _words(fh.read()) & names
+    assert not found, found
 
 
 def _modules_after(code):
@@ -123,8 +196,8 @@ def _modules_after(code):
 def test_a_run_imports_no_jax():
     code = ("import json, sys; sys.path.insert(0, '.'); "
             "from benchmark import run; "
-            f"run.run_cell('water19k.tgnh', 3, 0.2, True, device='cpu', "
-            f"config_override={SMALL['water19k.tgnh']!r}, "
+            f"run.run_cell({CELLS[0]!r}, 3, 0.2, True, device='cpu', "
+            f"config_override={small(CELLS[0])!r}, "
             "log=lambda msg: None); "
             "print(json.dumps(sorted({m.split('.')[0] "
             "for m in sys.modules})))")
@@ -132,15 +205,17 @@ def test_a_run_imports_no_jax():
 
 
 def test_reference_imports_nothing_of_the_port():
+    mods = ", ".join("benchmark." + p[:-3].replace(os.sep, ".")
+                     for p in REFERENCE_SOURCES)
     code = ("import json, sys; sys.path.insert(0, '.'); "
-            "import benchmark.check, benchmark.reference, benchmark.counts; "
+            f"import {mods}; "
             "print(json.dumps(sorted({m.split('.')[0] "
             "for m in sys.modules})))")
     found = _modules_after(code)
     assert not found & (FORBIDDEN | {"openmm_velocityverlet_tpu_torch"})
 
 
-@pytest.mark.parametrize("name", ["reference.py", "check.py", "counts.py"])
+@pytest.mark.parametrize("name", REFERENCE_SOURCES)
 def test_reference_sources_name_no_port(name):
     with open(os.path.join(run.HERE, name)) as fh:
         tree = ast.parse(fh.read())
@@ -204,8 +279,7 @@ def test_readers_find_nothing_without_a_trace():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("workload", sorted(
-    w["name"] for w in run.load_json(ROOT, "BENCHMARK.json")["workloads"]))
+@pytest.mark.parametrize("workload", CELLS)
 def test_card_run(workload):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")

@@ -1,6 +1,9 @@
-"""Hands a cell's tables to the port's public API: ``SystemBuilder`` for the
-System, ``VVIntegrator`` for the thermostat and ``Context`` for the step.
-The only module of the harness that imports the port, and only inside its
+"""The wiring of the SWM4-NDP water: hands the tables of
+``benchmark/layouts/swm4_ndp.py`` to the port's public API,
+``SystemBuilder`` for the System (particles, isotropic Drudes,
+constraints, averaged virtual sites, exclusions, LJ types),
+``VVIntegrator`` for the TGNH thermostat and ``Context`` for the step, on
+the traffic's ``recip`` route.  It imports the port only inside its
 functions."""
 from __future__ import annotations
 
