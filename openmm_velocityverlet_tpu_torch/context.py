@@ -12,12 +12,13 @@ kicks, RATTLE, the TGNH thermostat with the cosine velocity bias removed
 and restored around it, the Langevin Ornstein-Uhlenbeck map (middle
 scheme), drift on compensated two-float positions, SHAKE with its velocity
 correction, the Drude hard wall and the image-charge sync (each image takes
-its parent's x, y and the mirrored z; ``pos_err`` is zeroed on the rows it
-moved).  The VV scheme carries the forces of
-the step's second evaluation into the next step, across ``step()`` calls
-and cache rebuilds; ``set_positions`` and ``set_velocities`` invalidate
-them.  Langevin noise is drawn from ``State.generator`` (its numbers differ
-from the JAX threefry stream).
+its parent's x, y and the mirrored z, a virtual site's parent as placed;
+``pos_err`` is zeroed on the rows it moved).  The E-field's force on a
+virtual site is moved onto the site's parents once, at construction.  The
+VV scheme carries the forces of the step's second evaluation into the next
+step, across ``step()`` calls and cache rebuilds; ``set_positions`` and
+``set_velocities`` invalidate them.  Langevin noise is drawn from
+``State.generator`` (its numbers differ from the JAX threefry stream).
 
 The steps run in segments: the pair
 cache is rebuilt at the entry of each ``step()``, every ``sort_refresh``
@@ -170,12 +171,13 @@ class Context:
             self._thermo = stepping.thermostat_tables(system, data, dev)
             self._hardwall = stepping.hardwall_tables(system, data, dev)
             self._langevin = stepping.langevin_tables(system, data, dev)
-            # the E-field force is a constant (N,3) table; none without a
-            # field
+            # the E-field force is a constant (N,3) table, a virtual site's
+            # share on its parents; none without a field
             self._efield = None
             if data.electrolyte.shape[0] and data.electric_field != 0:
-                fz = stepping.efield_extra_force(np.asarray(system.charges),
-                                                 data)
+                fz = stepping.vsite_field_to_parents(
+                    stepping.efield_extra_force(np.asarray(system.charges),
+                                                data), system)
                 self._efield = torch.as_tensor(
                     fz[:, None] * np.asarray([0.0, 0.0, 1.0], np.float32),
                     device=self.device)
@@ -183,6 +185,10 @@ class Context:
             self._images = (torch.as_tensor(
                 np.asarray(data.image_pairs, np.int64), device=self.device)
                 if data.image_pairs.shape[0] else None)
+            # an image of a virtual site mirrors the site's placement: the
+            # step never moves a massless site's stored row
+            self._image_sites = stepping.image_site_tables(
+                system, data.image_pairs, self.device)
             self.barostat = barostat
             if barostat is not None:
                 self._baro_mol = baro_mod.molecule_tables(system, self.device)
@@ -453,13 +459,18 @@ class Context:
             return accepted
 
     def _sync_images(self, new_pos, new_err):
-        """Images onto their parents' mirror; ``pos_err`` zeroed on every
-        row the sync moved."""
+        """Images onto their parents' mirror, a virtual site's as placed;
+        ``pos_err`` zeroed on every row the sync moved."""
         if self._images is None:
             return new_pos, new_err
         with trace.span("step.images"):
+            parents = None
+            if self._image_sites is not None:
+                rows, par, w = self._image_sites
+                parents = new_pos.index_put((rows,), torch.einsum(
+                    "vp,vpx->vx", w, new_pos[par]))
             img_pos = stepping.update_image_positions(
-                new_pos, self._images, self.data.mirror_location)
+                new_pos, self._images, self.data.mirror_location, parents)
             moved = (img_pos != new_pos).any(-1, keepdim=True)
             return img_pos, torch.where(moved, torch.zeros_like(new_err),
                                         new_err)

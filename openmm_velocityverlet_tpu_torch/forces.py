@@ -152,6 +152,9 @@ class ForceEvaluator:
         self.system = system
         self.device = resolve_device(device)
         self.external_forces = list(external_forces)
+        self._analytic_externals = [
+            (i, f) for i, f in enumerate(self.external_forces)
+            if getattr(f, "analytic_force", None) is not None]
         # (img0, par0, count, mirror_z) of a contiguous trailing image block
         # mirroring the block just before it (Context checks the layout)
         self.image_mirror = image_mirror
@@ -605,11 +608,11 @@ class ForceEvaluator:
                 r_switch=s.r_switch)
         forces = f_direct + f_terms - grad_smooth
         # externals with their own forces (masked elementwise over all N)
-        for i, f in enumerate(self.external_forces):
-            af = getattr(f, "analytic_force", None)
-            if af is not None:
-                terms[f"external_{i}"] = f(pos, box)
-                forces = forces + af(pos, box)
+        if self._analytic_externals:
+            with trace.span("forces.external"):
+                for i, f in self._analytic_externals:
+                    terms[f"external_{i}"] = f(pos, box)
+                    forces = forces + f.analytic_force(pos, box)
         with trace.span("forces.vsites"):
             forces = vsites.redistribute_forces(
                 pos_raw, forces, t.vsite_index, t.vsite_parents,

@@ -369,6 +369,50 @@ def efield_extra_force(charges, data: IntegratorData):
     return efscale * np.asarray(charges) * mask
 
 
+def image_site_tables(system, image_pairs, device):
+    """(rows, parents (V, 3), weights (V, 3)) on ``device`` of the virtual
+    sites that are the parents of image pairs ((image, parent) rows), or
+    None where no image's parent is one: the image sync mirrors such a
+    site's placement, a weighted average of its parents.  A site with a
+    local-frame offset is refused."""
+    vi = np.asarray(system.vsite_index).reshape(-1)
+    pairs = np.asarray(image_pairs).reshape(-1, 2)
+    sel = np.isin(vi, pairs[:, 1]) if pairs.shape[0] else np.zeros(0, bool)
+    if not sel.any():
+        return None
+    if np.any(np.asarray(system.vsite_local)[sel] != 0):
+        raise ValueError("an image of a virtual site with a local-frame "
+                         "offset is not supported")
+    return (torch.as_tensor(vi[sel].astype(np.int64), device=device),
+            torch.as_tensor(np.asarray(system.vsite_parents)[sel].astype(
+                np.int64), device=device),
+            torch.as_tensor(np.asarray(system.vsite_origin_w,
+                                       np.float32)[sel], device=device))
+
+
+def vsite_field_to_parents(field, system):
+    """The per-row field force ``field`` (N,) with each virtual site's share
+    moved onto its parents by the site's weights.  A site has no mass, so a
+    force left on its row would move nothing, and a neutral molecule with a
+    charged site would feel a net force along the field.  Exact for sites
+    placed as weighted averages of their parents; a charged field row on a
+    site with a local-frame offset is refused (its share would turn with
+    the frame)."""
+    vi = np.asarray(system.vsite_index).reshape(-1)
+    carry = field[vi] != 0 if vi.size else np.zeros(0, bool)
+    if not carry.any():
+        return field
+    if np.any(np.asarray(system.vsite_local)[carry] != 0):
+        raise ValueError("the E-field on a virtual site with a local-frame "
+                         "offset is not supported: list its parents instead")
+    out = np.asarray(field, np.float64).copy()
+    w = np.asarray(system.vsite_origin_w, np.float64)[carry]
+    np.add.at(out, np.asarray(system.vsite_parents)[carry],
+              w * out[vi[carry], None])
+    out[vi[carry]] = 0.0
+    return out.astype(np.asarray(field).dtype)
+
+
 def _cos_z(pos, box):
     return torch.cos(2.0 * PI * pos[:, 2] / box[2])
 
@@ -490,13 +534,16 @@ def _hardwall(pos, vel, t):
 
 
 # ------------------------------------------------------------ image sync
-def update_image_positions(pos, image_pairs, mirror_location):
+def update_image_positions(pos, image_pairs, mirror_location,
+                           parent_pos=None):
     """Mirror image particles across the electrode plane: copy x,y; reflect
     z (updateImagePositions, imageCharge.cu:2-28).  ``image_pairs`` is a
-    (I,2) int64 tensor of (image, parent)."""
+    (I,2) int64 tensor of (image, parent); the parents' rows are read from
+    ``parent_pos`` where given (positions with virtual sites placed), else
+    from ``pos``."""
     if image_pairs.shape[0] == 0:
         return pos
-    pp = pos[image_pairs[:, 1]]
+    pp = (pos if parent_pos is None else parent_pos)[image_pairs[:, 1]]
     new = torch.cat([pp[:, 0:2], 2.0 * mirror_location - pp[:, 2:3]], dim=1)
     return pos.index_put((image_pairs[:, 0],), new)
 

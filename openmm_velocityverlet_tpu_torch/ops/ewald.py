@@ -18,6 +18,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .. import trace
 from ..units import ONE_4PI_EPS0, PI
 
 
@@ -136,14 +137,15 @@ def reciprocal_energy(pos, box, charges, beta, kmax, chunk: int = 0,
             raise ValueError(
                 f"mirror {mirror}: the images must be the trailing block "
                 f"and their parents the block just before it ({n} atoms)")
-        m_liq = accumulate(pos[par0:img0], charges[par0:img0])
-        M = accumulate(pos[:par0], charges[:par0]) + m_liq
-        ml = m_liq.detach()
-        c2m = torch.cos(2.0 * kz * zm)                        # (C,)
-        s2m = torch.sin(2.0 * kz * zm)
-        mc, ms = ml[:, :C], ml[:, C:]
-        M = M - torch.cat([mc * c2m[None, :] + ms * s2m[None, :],
-                           mc * s2m[None, :] - ms * c2m[None, :]], dim=1)
+        with trace.span("recip.mirror"):
+            m_liq = accumulate(pos[par0:img0], charges[par0:img0])
+            M = accumulate(pos[:par0], charges[:par0]) + m_liq
+            ml = m_liq.detach()
+            c2m = torch.cos(2.0 * kz * zm)                    # (C,)
+            s2m = torch.sin(2.0 * kz * zm)
+            mc, ms = ml[:, :C], ml[:, C:]
+            M = M - torch.cat([mc * c2m[None, :] + ms * s2m[None, :],
+                               mc * s2m[None, :] - ms * c2m[None, :]], dim=1)
     else:
         M = accumulate(pos, charges)
     rc_, rs_ = M[:A * B, :C], M[:A * B, C:]

@@ -46,6 +46,8 @@ SPANS = {
     "forces.pairs": "pair sweep",           # the direct-space sweep
     "forces.smooth": "reciprocal",          # autograd terms, forward + grad
     "forces.terms": "bonded and molecule terms",
+    "forces.external": "externals",         # closures with their own force
+    "recip.mirror": "reciprocal",           # the mirror route, forward
     "step.rattle": "constraints",           # each velocity projection
     "step.shake": "constraints",            # each position solve
     "step.thermostat": "thermostat",        # the TGNH block

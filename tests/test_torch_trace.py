@@ -5,8 +5,11 @@ the spans' ranges and their nesting under torch.profiler, with no user
 annotation among them; the host-clock aggregates outside the profiler,
 against the Context's own counters, and still under it; the same
 positions and velocities with and without a profiler recording; the
-benchmark's six readers of the aggregates; and the span names, each
-listed once in ``trace.SPANS`` and used in the package's code."""
+benchmark's six readers of the aggregates; the spans of the analytic
+externals and of the mirror route, entered on a small constant-voltage
+slab (``tests/test_torch_slab.py``) and not on the water, with the four
+readers of the slab's cell; and the span names, each listed once in
+``trace.SPANS`` and used in the package's code."""
 import importlib.util
 import math
 import os
@@ -140,6 +143,50 @@ def stepped():
 
 @pytest.mark.parametrize("name", READERS)
 def test_reader_reads_the_aggregates(name, stepped):
+    path = os.path.join(ROOT, "benchmark", "metrics", name + ".py")
+    spec = importlib.util.spec_from_file_location(
+        "span_reader_" + name.replace(".", "_"), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    value = mod.read(types.SimpleNamespace())
+    assert isinstance(value, float) and math.isfinite(value) and value > 0
+
+
+# spans entered only where their mechanism runs: the analytic externals
+# and the reciprocal's mirror route
+SLAB_SPANS = ("forces.external", "recip.mirror")
+SLAB_READERS = ("step.images_ms", "forces.external_ms", "recip.mirror_ms",
+                "recip.mirror_per_step")
+
+
+@pytest.fixture(scope="module")
+def slab():
+    from tests.test_torch_slab import slab_context, slab_tables
+    return slab_context(slab_tables())
+
+
+def _calls(before, after):
+    return {name: after[name].count - before[name].count
+            for name in SLAB_SPANS + ("step",)}
+
+
+def test_slab_spans_run_on_a_slab_only(slab):
+    water = _context()
+    a0 = trace.totals()
+    water.step(3)
+    a1 = trace.totals()
+    slab.step(3)
+    a2 = trace.totals()
+    assert _calls(a0, a1) == {"step": 3, "forces.external": 0,
+                              "recip.mirror": 0}
+    # one force evaluation a step of the middle scheme
+    assert _calls(a1, a2) == {"step": 3, "forces.external": 3,
+                              "recip.mirror": 3}
+
+
+@pytest.mark.parametrize("name", SLAB_READERS)
+def test_slab_reader_reads_the_aggregates(name, slab):
+    slab.step(3)
     path = os.path.join(ROOT, "benchmark", "metrics", name + ".py")
     spec = importlib.util.spec_from_file_location(
         "span_reader_" + name.replace(".", "_"), path)
