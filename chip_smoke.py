@@ -32,10 +32,14 @@ Phases:
      their path, the gather tool's main(), then bitwise against their
      plain versions and torch.index_select, timed on the device
      (torch.profiler, else a CUDA graph of 50 calls between two events)
-     beside the library call, B7 against half its bound;
+     beside the library call, B7 against half its bound; the
+     constraint-cluster kernels (SHAKE and RATTLE, one launch a bucket)
+     on path 1's own constraint data, positions and velocities against
+     their plain versions, timed beside them (``constraint_phase``);
   3. path 1, the main path: Context with VVIntegrator(333, 10, 1, 40,
      0.001), setMaxDrudeDistance(0.02); step(20) warm-up, step(200) timed,
-     B1 launched >= 200 times;
+     B1 launched >= 200 times, SHAKE's and RATTLE's kernels each once a
+     bucket for each of their 200 calls;
   4. path 2, Context(fold_exc14=True) (the z band, kernel B2), and path 3,
      Context(strict_pairs=True, recip="exact_fused") (B1 with B2 as the
      exact fallback, B4/B5): step(20), then step(100) timed, B2 resp. B4
@@ -203,6 +207,13 @@ BULK_MIN_ITERATIONS = 50
 # reports: StateData, DCD, DrudeTemperature and checkpoints every 50 steps,
 # GRO every 100 (log spacing, as run_bulk's)
 BULK_EVERY, BULK_GRO_EVERY = 50, 100
+# the constraint-cluster kernels against their plain versions: rows within
+# CC_ULPS float32 epsilons of the largest |entry| of the target (nvcc's
+# fma contraction moves the last bits; the formulas are the plain
+# version's); the card tests' rigid SWM4-NDP waters at the benchmark's
+# water19k shapes: 3,900 waters, 19,500 sites, in a 4.914 nm box
+CC_ULPS = 32
+CC_WATERS, CC_BOX = 3900, 4.914
 # the checkpoint resume window: from the step-150 checkpoint to step 190,
 # which holds no attempt of run_bulk's barostat (every 100 steps), whose
 # state a checkpoint does not carry
@@ -1121,6 +1132,217 @@ def gather_phase():
           f"{'met' if b7['ms'] <= 2 * b7['bound_ms'] else 'missed'}, no "
           f"slower than index_select ({b7['library_ms']:.5f} ms) "
           f"{'met' if b7['ms'] <= b7['library_ms'] else 'missed'}")
+    return res
+
+
+def _rotation(rng):
+    """A uniform random rotation matrix (from a unit quaternion)."""
+    import numpy as np
+    q = rng.normal(size=4)
+    a, b, c, d = q / np.linalg.norm(q)
+    return np.array([
+        [a * a + b * b - c * c - d * d, 2 * (b * c - a * d),
+         2 * (b * d + a * c)],
+        [2 * (b * c + a * d), a * a - b * b + c * c - d * d,
+         2 * (c * d - a * b)],
+        [2 * (b * d - a * c), 2 * (c * d + a * b),
+         a * a - b * b - c * c + d * d]])
+
+
+def cluster_molecule(kind):
+    """(masses, local coordinates in nm, constraints (i, j)) of one molecule
+    of ``kind``: "swm4" the rigid SWM4-NDP water (O, H1, H2 a constrained
+    triangle, then its unconstrained M site and Drude, as the benchmark's
+    layout orders the sites), "k1" an O-H pair, "k2" a water with its two
+    O-H bonds constrained and H-H free (one given as H-O), "ch3" a methyl
+    star (K = 3 over 4 atoms, one bond given as H-C), "ch4" methane (K = 4
+    over 5 atoms)."""
+    import numpy as np
+    th = np.deg2rad(104.52) / 2
+    oh = 0.09572
+    water = np.array([[0.0, 0.0, 0.0], [oh * np.sin(th), oh * np.cos(th), 0],
+                      [-oh * np.sin(th), oh * np.cos(th), 0]])
+    tet = np.array([[1, 1, 1], [1, -1, -1], [-1, 1, -1], [-1, -1, 1]]) \
+        / np.sqrt(3.0)
+    o, h, c = 15.9994, 1.008, 12.011
+    if kind == "swm4":
+        m_site = [0.0, 0.024034, 0.0]
+        return ([15.5994, h, h, 0.0, 0.4],
+                np.vstack([water, [m_site, [0.0, 0.0, 0.0]]]),
+                [(0, 1), (0, 2), (1, 2)])
+    if kind == "k1":
+        return [o, h], water[:2], [(0, 1)]
+    if kind == "k2":
+        return [o, h, h], water, [(0, 1), (2, 0)]
+    if kind == "ch3":
+        return ([c, h, h, h], np.vstack([[0.0, 0.0, 0.0], 0.109 * tet[:3]]),
+                [(0, 1), (2, 0), (0, 3)])
+    if kind == "ch4":
+        return ([c, h, h, h, h], np.vstack([[0.0, 0.0, 0.0], 0.109 * tet]),
+                [(0, 1), (0, 2), (3, 0), (0, 4)])
+    raise ValueError(f"unknown molecule kind {kind!r}")
+
+
+def cluster_system(seed, counts, box=CC_BOX, edge_share=0.3, disp=0.002,
+                   vel_sd=0.5):
+    """Molecules of the kinds in ``counts`` (kind -> number, see
+    ``cluster_molecule``) in a cubic box of side ``box`` nm, in a seeded
+    random order, place and orientation; ``edge_share`` of them centred
+    within 0.05 nm of a box face, and every atom wrapped into the box on
+    its own, so that those clusters straddle the face and only the minimum
+    image joins them.  Returns (pairs, dists, inv_masses, pos, new, vel,
+    box) as int32 / float32 arrays: ``pos`` satisfies the constraints,
+    ``new`` is ``pos`` moved by about ``disp`` nm a coordinate (a step's
+    drift), ``vel`` Gaussian; massless sites have inverse mass 0."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    side = np.full(3, float(box))
+    kinds = [k for k, n in sorted(counts.items()) for _ in range(n)]
+    rng.shuffle(kinds)
+    xs, inv_m, pairs, dists = [], [], [], []
+    n = 0
+    for kind in kinds:
+        masses, loc, cons = cluster_molecule(kind)
+        centre = rng.uniform(0.0, side)
+        if rng.uniform() < edge_share:
+            ax = rng.integers(3)
+            centre[ax] = rng.uniform(-0.05, 0.05) % side[ax]
+        xs.append(centre + loc @ _rotation(rng).T)
+        for i, j in cons:
+            pairs.append((n + i, n + j))
+            dists.append(np.linalg.norm(loc[i] - loc[j]))
+        inv_m += [1.0 / m if m > 0 else 0.0 for m in masses]
+        n += len(masses)
+    pos = np.vstack(xs) % side
+    new = pos + rng.normal(0.0, disp, pos.shape)
+    vel = rng.normal(0.0, vel_sd, pos.shape)
+    f = np.float32
+    return (np.asarray(pairs, np.int32), np.asarray(dists, f),
+            np.asarray(inv_m, f), pos.astype(f), new.astype(f),
+            vel.astype(f), side.astype(f))
+
+
+def constraint_residuals(pos, vel, pairs, dists, box):
+    """(max relative bond-length error, max relative velocity along the
+    bonds) in float64 of float32 rows: | |r_ij| - d | / d under the
+    minimum image, and |(v_i - v_j) . r_ij| / (|r_ij| rms|v|)."""
+    import numpy as np
+    p = np.asarray(pos, np.float64)
+    dr = p[pairs[:, 0]] - p[pairs[:, 1]]
+    dr -= box * np.round(dr / box)
+    r = np.linalg.norm(dr, axis=1)
+    rel_pos = float(np.max(np.abs(r - dists) / dists))
+    if vel is None:
+        return rel_pos, None
+    v = np.asarray(vel, np.float64)
+    rv = np.sum((v[pairs[:, 0]] - v[pairs[:, 1]]) * dr, axis=1)
+    return rel_pos, float(np.max(np.abs(rv) / r)
+                          / np.sqrt(np.mean(v * v)))
+
+
+def constraint_agreement(cons, pos, target, box, pairs, dists,
+                         velocities):
+    """One call of ``constraint_clusters`` (SHAKE with ``target`` the
+    unconstrained positions, or RATTLE with ``target`` the velocities)
+    against its plain version on the same tensors.  Returns (ok, numbers):
+    ok where it launched its kind's kernel once a bucket, its rows lie
+    within CC_ULPS float32 epsilons of the largest |entry| of the plain
+    version's, its residual (``constraint_residuals``) is at or below the
+    plain version's plus the rounding of the rows (one epsilon of the
+    largest coordinate over the shortest bond; four of the largest
+    |velocity| over their rms), rows outside every cluster are bitwise
+    ``target``'s and two more calls are bitwise alike."""
+    import numpy as np
+    import torch
+    from openmm_velocityverlet_tpu_torch.ops import constraints as cc
+    plain = (cc.solve_velocity_clusters if velocities
+             else cc.solve_position_clusters)
+    kind = "rattle_launches" if velocities else "shake_launches"
+    before = getattr(cc.constraint_clusters, kind)
+    out = cc.constraint_clusters(pos, target, box, cons,
+                                 velocities=velocities)
+    launches = getattr(cc.constraint_clusters, kind) - before
+    ref = plain(pos, target, box, cons)
+    torch.cuda.synchronize()
+    eps = float(np.finfo(np.float32).eps)
+    err = float((out - ref).abs().max())
+    tol = CC_ULPS * eps * float(target.abs().max())
+    p_np, b_np = pos.cpu().numpy(), box.cpu().numpy()
+    if velocities:
+        got, want = (constraint_residuals(p_np, v.cpu().numpy(), pairs,
+                                          dists, b_np)[1] for v in (out, ref))
+        t = target.double()
+        slack = 4 * eps * float(t.abs().max() / t.square().mean().sqrt())
+    else:
+        got, want = (constraint_residuals(x.cpu().numpy(), None, pairs,
+                                          dists, b_np)[0] for x in (out, ref))
+        slack = eps * float(b_np.max()) / float(np.min(dists))
+    inside = cons.atom_in_cluster
+    untouched = torch.equal(out[~inside], target[~inside])
+    same = all(torch.equal(cc.constraint_clusters(
+        pos, target, box, cons, velocities=velocities), out)
+        for _ in range(2))
+    ok = (launches == len(cons.buckets) and err <= tol
+          and got <= want + slack and untouched and same)
+    return ok, dict(launches=launches, max_abs_err=err, tolerance=tol,
+                    residual=got, plain_residual=want, slack=slack,
+                    untouched=untouched, bitwise_alike=same)
+
+
+def constraint_phase(ctx, dt):
+    """The constraint-cluster kernels (csrc/constraint_clusters.cu) at the
+    shapes path 1 launches: ``ctx``'s own constraint data (one bucket of
+    waters with their two O-H bonds constrained, K = 2, in the smoke's
+    ``drude_water_box``), its positions and velocities, and as SHAKE's target
+    the positions moved by ``dt`` times the velocities.  SHAKE and RATTLE
+    through ``constraint_clusters`` against their plain versions on the
+    same CUDA tensors (``constraint_agreement``); then each timed with CUDA
+    events around one call (the wrapper's copy and launch, host gaps
+    included), the kernel's device time alone (torch.profiler, else
+    CUDA-graph events of the whole call) and the plain versions' times."""
+    from openmm_velocityverlet_tpu_torch.ops import constraints as cc
+    cons = ctx.cons
+    if not (cons.use_clusters and cons.buckets):
+        raise AssertionError("constraint phase: path 1 has no cluster "
+                             "buckets")
+    st = ctx.state
+    P, V, B = st.pos, st.vel, st.box
+    pairs, dists = cons.pairs.cpu().numpy(), cons.dist.cpu().numpy()
+    shapes = ", ".join(f"{bk['ncl']} clusters of K = {bk['K']}"
+                       for bk in cons.buckets)
+    res = {}
+    for key, velocities, target, plain in (
+            ("shake", False, P + dt * V, cc.solve_position_clusters),
+            ("rattle", True, V, cc.solve_velocity_clusters)):
+        ok, num = constraint_agreement(cons, P, target, B, pairs, dists,
+                                       velocities)
+        if not ok:
+            raise AssertionError(f"constraint {key} against its plain "
+                                 f"version: {num}")
+        call = functools.partial(cc.constraint_clusters, P, target, B, cons,
+                                 velocities=velocities)
+        ms = cuda_time_ms(call)
+        device = device_ms(call, graph=True, kernel=f"{key}_kernel")
+        measure = device_ms.measure
+        plain_ms = cuda_time_ms(lambda: plain(P, target, B, cons))
+        # a cluster reads its A rows of ref and of target and writes them,
+        # and reads its tables
+        n_bytes = nbytes(B) + sum(
+            3 * bk["A"] * bk["ncl"] * 3 * P.element_size()
+            + nbytes(bk["gid"], bk["w"], bk["invm"])
+            + (0 if velocities else nbytes(bk["d2"])) for bk in cons.buckets)
+        b_ms, b_by = bound(0, n_bytes)
+        print(f"[kernel] constraint {key} ({shapes}; {P.shape[0]} atoms): "
+              f"max |kernel - plain| "
+              f"{num['max_abs_err']:.3e} (tolerance {num['tolerance']:.3e}), "
+              f"residual {num['residual']:.3e} (plain "
+              f"{num['plain_residual']:.3e}), {num['launches']} launch a "
+              f"call; ms {ms:.4f} (events around one call, copy included), "
+              f"device {device:.5f} ({measure}), plain {plain_ms:.4f}; bound "
+              f"{b_ms:.5f} ms ({b_by}, {n_bytes / 1e6:.3f} MB)")
+        res[key] = dict(num, clusters=shapes, ms=ms, device_ms=device,
+                        device_measure=measure, plain_ms=plain_ms,
+                        bound_ms=b_ms, bound_by=b_by)
     return res
 
 
@@ -2662,6 +2884,7 @@ def main():
     from openmm_velocityverlet_tpu_torch import Context, VVIntegrator, kernels
     from openmm_velocityverlet_tpu_torch.models.drude_water import \
         drude_water_box
+    from openmm_velocityverlet_tpu_torch.ops import constraints as cc
     from openmm_velocityverlet_tpu_torch.ops import ewald_fused as ef
     from openmm_velocityverlet_tpu_torch.ops import pair_plist as pp
     from openmm_velocityverlet_tpu_torch.ops import pair_tri as pt
@@ -2708,6 +2931,7 @@ def main():
     rc = recip_phase(ctx1)
     b3 = b3_phase(ctx1, system, pos)
     gat = gather_phase()
+    cons_k = constraint_phase(ctx1, dt)
 
     stamp("path 1")
     # path 1: the main path
@@ -2715,10 +2939,24 @@ def main():
     print(f"[slice] pair_mode {ev1.pair_mode}, tile size {ev1.pair_ts} "
           f"(chosen from the start configuration), sort {ev1.plist_sort}, "
           f"nowrap {ev1.plist_nowrap}, list capacity {ev1.plist_cap}")
+    ccf = cc.constraint_clusters
+
+    def zero_cluster_kinds():
+        ccf.shake_launches = ccf.rattle_launches = 0
+
     sps1, el1, l1 = drive("slice", ctx1, 200, {"B1": pp.plist_pair}, card,
-                          dt)
+                          dt, mark=zero_cluster_kinds)
     if l1["B1"] < 200:
         raise AssertionError(f"B1 launched {l1['B1']} < 200 times")
+    # one SHAKE and one RATTLE call a step, each one launch a bucket
+    l1["shake"], l1["rattle"] = ccf.shake_launches, ccf.rattle_launches
+    print(f"[slice] constraint kernels: shake {l1['shake']}, rattle "
+          f"{l1['rattle']} launches in 200 steps")
+    for kind in ("shake", "rattle"):
+        if l1[kind] != 200 * len(ctx1.cons.buckets):
+            raise AssertionError(
+                f"the {kind} kernel launched {l1[kind]} times in 200 "
+                f"steps, expected {200 * len(ctx1.cons.buckets)}")
     check_finite("slice", ctx1, system)
     prof1 = profile("path 1", ctx1, el1 / 200 * 1e3)
 
@@ -2945,6 +3183,20 @@ def main():
          "model_evaluations": b3["model_evaluations"],
          "cutoff_pairs": b3["cutoff_pairs"],
          "evals_per_cutoff_pair": b3["evals_per_cutoff_pair"]}]
+        + [{"name": "constraint_clusters." + key, "route": "cuda",
+            "source": src + "constraint_clusters.cu", "replaces": None,
+            "replaces_why": "the JAX package's constraints are plain jnp; "
+                            "eager PyTorch ran them as hundreds of launches",
+            "launches": l1[key], "clusters": c["clusters"],
+            "launches_a_call": c["launches"],
+            "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": None,
+            "device_ms": c["device_ms"],
+            "device_measure": c["device_measure"],
+            "residual": c["residual"],
+            "plain_residual": c["plain_residual"]}
+           for key, c in cons_k.items()]
         + [{"name": g["name"], "route": "cuda", "source": src + "gather.cu",
             "replaces": "tools/exp_gather_kernel.py:" + line,
             "launches": g["launches"], "max_abs_err": g["max_abs_err"],

@@ -20,7 +20,8 @@ import subprocess
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("plist_pair", "tri_pair", "ewald_fused", "rect_pair", "gather")
+SOURCES = ("plist_pair", "tri_pair", "ewald_fused", "rect_pair", "gather",
+           "constraint_clusters")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -10,15 +10,22 @@ through closed-form Cramer rules on component tensors.  The cluster path
 makes no host synchronisation.  Clusters larger than K_CAP fall back to the
 iterative pair path, whose tolerance loop reads the residual on the host
 once per iteration.
+
+``constraint_clusters`` runs the cluster path: on a CUDA tensor it launches
+the kernel of ``csrc/constraint_clusters.cu`` once a bucket, each thread
+solving one cluster in registers; on a CPU tensor it takes the plain torch
+versions ``solve_position_clusters`` / ``solve_velocity_clusters``, which
+compute the same rows from the same tables.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
 import torch
 
-from .. import trace
+from .. import kernels, trace
 from ..system import resolve_device
 from ..utils.pbc import minimum_image
 
@@ -32,9 +39,10 @@ class ConstraintData:
     inv_mass_sum: torch.Tensor   # (C,) 1/mi + 1/mj
     atom_cons: torch.Tensor      # (N,A) int64 incident constraint ids, -1
     atom_sign: torch.Tensor      # (N,A) +1 if atom is pair[...,0], else -1
-    # bucketed cluster solver: per bucket the static pattern ``key`` and
-    # the (K,K,ncl) coupling weights, (K,ncl) squared distances and (A,ncl)
-    # inverse masses as tensors
+    # bucketed cluster solver: per bucket the static pattern ``key`` (and
+    # its slots as the C int array ``slots`` the kernel's launch takes) and
+    # the (K,K,ncl) coupling weights, (K,ncl) squared distances, (A,ncl)
+    # inverse masses and (A,ncl) int32 global rows ``gid`` as tensors
     buckets: tuple = ()
     atom_slot: torch.Tensor = None        # (N,) int64
     atom_in_cluster: torch.Tensor = None  # (N,) bool
@@ -178,7 +186,8 @@ def build_constraint_data(pairs, dists, inv_masses, tolerance=1e-5,
     dev_buckets = tuple(
         dict(key=bk["key"], K=bk["K"], A=bk["A"], ncl=bk["ncl"],
              flat_base=bk["flat_base"], w=t(bk["w"]), d2=t(bk["d2"]),
-             invm=t(bk["invm"]))
+             invm=t(bk["invm"]), gid=t(bk["gid"], np.int32),
+             slots=_slots(bk["key"]))
         for bk in buckets)
     return ConstraintData(
         pairs=t(pairs), dist=t(dists), inv_mass_sum=t(inv_mass_sum),
@@ -341,6 +350,100 @@ def solve_velocity_clusters(pos, vel, box, cons: ConstraintData):
     return _writeback(vel, cons, parts)
 
 
+def _slots(key):
+    """A bucket pattern's 2 K slots as the C int array the kernel's launch
+    takes: the first slots of the K constraints, then their second slots."""
+    return (ctypes.c_int * (2 * len(key)))(*[a for a, _ in key],
+                                           *[b for _, b in key])
+
+
+def _launcher():
+    """The kernel library with its C signature declared (pointers and the
+    stream as c_void_p, so ctypes never truncates them to 32 bits)."""
+    lib = kernels.load("constraint_clusters")
+    if lib.constraint_clusters_launch.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.constraint_clusters_launch.argtypes = [
+            I, I, I, ctypes.POINTER(I), I, P, P, P, P, P, P, P, P, I, P]
+        lib.constraint_clusters_launch.restype = I
+        lib.constraint_clusters_error_string.argtypes = [I]
+        lib.constraint_clusters_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(t, name, dtype, shape, device):
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or t.device != device or not t.is_contiguous():
+        raise ValueError(
+            f"constraint_clusters: {name} must be a contiguous {dtype} "
+            f"tensor of shape {tuple(shape)} on {device}; got {t.dtype} "
+            f"{tuple(t.shape)} on {t.device}")
+
+
+def constraint_clusters(ref, target, box, cons: ConstraintData, *,
+                        velocities):
+    """The cluster path: SHAKE (``velocities`` False: ``target`` the
+    unconstrained positions, moved along the bonds of the
+    constraint-satisfying ``ref``) or RATTLE (``velocities`` True:
+    ``target`` the velocities, ``ref`` the positions); returns the
+    constrained copy of ``target``.
+
+    On a CUDA tensor this launches the kernel of
+    ``csrc/constraint_clusters.cu`` once a bucket on the current stream into
+    a copy of ``target``, and counts each launch in
+    ``constraint_clusters.launches`` and in ``.shake_launches`` or
+    ``.rattle_launches``; on a CPU tensor it runs
+    ``solve_position_clusters`` / ``solve_velocity_clusters``.  There is no
+    fallback: a CUDA call the kernel cannot take raises.  The buckets'
+    tables are made once, by ``build_constraint_data``, all on one device
+    with fixed dtypes and shapes; a call checks its own tensors, and that
+    ``cons`` was built on their device for their number of rows, which
+    also puts every ``gid`` in range."""
+    dev = target.device
+    if dev.type == "cpu":
+        if velocities:
+            return solve_velocity_clusters(ref, target, box, cons)
+        return solve_position_clusters(ref, target, box, cons)
+    if dev.type != "cuda":
+        raise ValueError(f"constraint_clusters: unsupported device {dev}")
+    n = target.shape[0]
+    f32 = torch.float32
+    _check(ref, "ref", f32, (n, 3), dev)
+    _check(target, "target", f32, (n, 3), dev)
+    _check(box, "box", f32, (3,), dev)
+    built = cons.atom_in_cluster
+    if built.device != dev or built.shape[0] != n:
+        raise ValueError(
+            f"constraint_clusters: the constraint data was built for "
+            f"{built.shape[0]} atoms on {built.device}; got {n} rows on "
+            f"{dev}")
+    lib = _launcher()
+    out = target.clone()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rattle = int(bool(velocities))
+    for bk in cons.buckets:
+        err = lib.constraint_clusters_launch(
+            rattle, bk["K"], bk["A"], bk["slots"], bk["ncl"], ref.data_ptr(),
+            target.data_ptr(), out.data_ptr(), bk["gid"].data_ptr(),
+            bk["d2"].data_ptr(), bk["w"].data_ptr(), bk["invm"].data_ptr(),
+            box.data_ptr(), cons.newton_iters, stream)
+        if err != 0:
+            raise RuntimeError(
+                "constraint_clusters kernel launch failed: "
+                + lib.constraint_clusters_error_string(err).decode())
+        constraint_clusters.launches += 1
+        if rattle:
+            constraint_clusters.rattle_launches += 1
+        else:
+            constraint_clusters.shake_launches += 1
+    return out
+
+
+constraint_clusters.launches = 0
+constraint_clusters.shake_launches = 0
+constraint_clusters.rattle_launches = 0
+
+
 def _apply_corrections(x, cons: ConstraintData, g, ref, inv_masses):
     """x_a += -inv_m_a * sum_{c incident} sign * g_c * ref_c  (gather form)."""
     cid = torch.clamp(cons.atom_cons, min=0)
@@ -357,7 +460,8 @@ def apply_position_constraints(pos_ref, pos_new, box, cons: ConstraintData,
         if cons.n_constraints == 0:
             return pos_new
         if cons.use_clusters:
-            return solve_position_clusters(pos_ref, pos_new, box, cons)
+            return constraint_clusters(pos_ref, pos_new, box, cons,
+                                       velocities=False)
         i, j = cons.pairs[:, 0], cons.pairs[:, 1]
         ref = minimum_image(pos_ref[i] - pos_ref[j], box)
         d2 = cons.dist * cons.dist
@@ -383,7 +487,8 @@ def apply_velocity_constraints(pos, vel, box, cons: ConstraintData,
         if cons.n_constraints == 0:
             return vel
         if cons.use_clusters:
-            return solve_velocity_clusters(pos, vel, box, cons)
+            return constraint_clusters(pos, vel, box, cons,
+                                       velocities=True)
         i, j = cons.pairs[:, 0], cons.pairs[:, 1]
         ref = minimum_image(pos[i] - pos[j], box)
         d2 = torch.sum(ref * ref, -1)

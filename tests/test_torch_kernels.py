@@ -13,7 +13,10 @@ with excluded pairs beyond the cutoff, in a tall box, on positions moved by
 whole box lengths and at n % 32 != 0, its evaluations against the torch
 model of its skips; B6-B8 (csrc/gather.cu) bitwise against their plain
 versions and against torch.index_select, B7 also with indices out of range,
-m % 4 != 0 and unaligned indices.  A CUDA
+m % 4 != 0 and unaligned indices; the constraint-cluster kernels
+(csrc/constraint_clusters.cu), SHAKE and RATTLE, on rigid SWM4-NDP waters
+at the water cells' 3,900, CH3 and CH4 stars, K = 1 and K = 2 buckets,
+five buckets in one system and clusters straddling the box faces.  A CUDA
 kernel has no CPU mode, so these tests skip on a machine without a card;
 chip_smoke.py runs the same comparisons at the main path's shapes.
 
@@ -21,7 +24,11 @@ Tolerance: rsqrtf is ~2 ulp from torch.rsqrt and nvcc contracts
 multiply-adds, so a pair kernel and its plain version agree to float32
 rounding; the bounds are the JAX package's pair-sweep tolerances
 (tests/test_pallas.py:105-107, 179-182, 397-400) and fused-reciprocal
-tolerances (tests/test_ewald_fused.py:36, 52-53)."""
+tolerances (tests/test_ewald_fused.py:36, 52-53).  The constraint kernels
+repeat their plain version's formulas, with fma contraction: rows within
+chip_smoke.CC_ULPS float32 epsilons of the largest entry, residuals at or
+below the plain version's to the rounding of the rows
+(chip_smoke.constraint_agreement)."""
 import importlib.util
 import os
 
@@ -29,9 +36,11 @@ import numpy as np
 import pytest
 import torch
 
-from openmm_velocityverlet_tpu_torch.ops import (allpairs, ewald,
-                                                 ewald_fused, pair_plist,
-                                                 pair_rect, pair_tri)
+import chip_smoke
+from openmm_velocityverlet_tpu_torch.ops import (allpairs, constraints,
+                                                 ewald, ewald_fused,
+                                                 pair_plist, pair_rect,
+                                                 pair_tri)
 from openmm_velocityverlet_tpu_torch.tools import exp_gather_kernel as gtool
 from openmm_velocityverlet_tpu_torch.units import ONE_4PI_EPS0
 
@@ -667,3 +676,90 @@ def test_gather_kernels_reject_bad_input(cuda):
         gtool.gather_lanes(blk, idx[:, :-1].t())
     with pytest.raises(RuntimeError, match="launch failed"):
         gtool.gather_lanes_tiled(blk[:, :64].contiguous(), idx)
+
+
+# ------------------------------------------- the constraint-cluster kernels
+# case -> (molecules of each kind, share of them on a box face, the
+# buckets' (K, A))
+CLUSTER_CASES = {
+    "swm4_waters": ({"swm4": chip_smoke.CC_WATERS}, 0.3, [(3, 3)]),
+    "ch3_stars": ({"ch3": 400}, 0.3, [(3, 4)]),
+    "k1_pairs": ({"k1": 400}, 0.3, [(1, 2)]),
+    "k2_waters": ({"k2": 400}, 0.3, [(2, 3)]),
+    "ch4_stars": ({"ch4": 400}, 0.3, [(4, 5)]),
+    "five_buckets": ({"swm4": 300, "ch3": 100, "k1": 60, "k2": 60,
+                      "ch4": 60}, 0.3,
+                     [(1, 2), (2, 3), (3, 3), (3, 4), (4, 5)]),
+    "straddling": ({"swm4": 200, "ch3": 100, "ch4": 100}, 1.0,
+                   [(3, 3), (3, 4), (4, 5)]),
+}
+
+
+def _cluster_setup(dev, case):
+    counts, edge_share, keys = CLUSTER_CASES[case]
+    pairs, dists, inv_m, pos, new, vel, box = chip_smoke.cluster_system(
+        sorted(CLUSTER_CASES).index(case), counts, edge_share=edge_share)
+    cons = constraints.build_constraint_data(pairs, dists, inv_m,
+                                             device=dev)
+    assert sorted((bk["K"], bk["A"]) for bk in cons.buckets) == keys
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    return cons, pairs, dists, inv_m, t(pos), t(new), t(vel), t(box)
+
+
+@pytest.mark.parametrize("case", sorted(CLUSTER_CASES))
+@pytest.mark.parametrize("velocities", [False, True])
+def test_constraint_kernels_match_plain(cuda, case, velocities):
+    cons, pairs, dists, _, pos, new, vel, box = _cluster_setup(cuda, case)
+    if case == "straddling":
+        # the minimum image joins the atoms of some clusters
+        raw = (pos[pairs[:, 0]] - pos[pairs[:, 1]]).abs().max()
+        assert float(raw) > 0.5 * float(box.min())
+    ok, num = chip_smoke.constraint_agreement(
+        cons, pos, vel if velocities else new, box, pairs, dists, velocities)
+    assert ok, num
+
+
+def test_constraint_entry_points_launch_once_a_bucket(cuda):
+    """The entry points that Context calls take the kernel on CUDA tensors:
+    one launch a bucket a call, the rows those of constraint_clusters."""
+    cons, _, _, inv_m, pos, new, vel, box = _cluster_setup(cuda,
+                                                           "five_buckets")
+    inv_m = torch.as_tensor(inv_m, device=cuda)
+    cc = constraints.constraint_clusters
+
+    def counts():
+        return cc.launches, cc.shake_launches, cc.rattle_launches
+
+    total, shake, rattle = counts()
+    p = constraints.apply_position_constraints(pos, new, box, cons, inv_m)
+    assert counts() == (total + 5, shake + 5, rattle)
+    v = constraints.apply_velocity_constraints(pos, vel, box, cons, inv_m)
+    assert counts() == (total + 10, shake + 5, rattle + 5)
+    assert torch.equal(p, cc(pos, new, box, cons, velocities=False))
+    assert torch.equal(v, cc(pos, vel, box, cons, velocities=True))
+    assert counts() == (total + 20, shake + 10, rattle + 10)
+
+
+def test_constraint_kernels_reject_bad_input(cuda):
+    """Bad tensors raise before any launch; so do rows fewer than the atoms
+    the constraint data was built for (the kernels index rows by ``gid``
+    unchecked) and constraint data built on another device."""
+    cons, pairs, dists, inv_m, pos, new, vel, box = _cluster_setup(
+        cuda, "five_buckets")
+    cpu_cons = constraints.build_constraint_data(pairs, dists, inv_m,
+                                                 device="cpu")
+    cc = constraints.constraint_clusters
+    before = (cc.launches, cc.shake_launches, cc.rattle_launches)
+    for ref, target, b, data, name in (
+            (pos, new.double(), box, cons, "target"),
+            (pos.double(), new, box, cons, "ref"),
+            (pos, new.t().contiguous().t(), box, cons, "target"),
+            (pos[:-1], new, box, cons, "ref"),
+            (pos, new, box.cpu(), cons, "box"),
+            (pos, new, box.double(), cons, "box"),
+            (pos[:-1], new[:-1], box, cons, "built for"),
+            (pos, new, box, cpu_cons, "built for")):
+        for velocities in (False, True):
+            with pytest.raises(ValueError, match=name):
+                cc(ref, target, b, data, velocities=velocities)
+    assert (cc.launches, cc.shake_launches, cc.rattle_launches) == before

@@ -2,6 +2,9 @@
 with the JAX package, on the same numpy inputs.  Forces are compared at the
 JAX package's force-vs-gradient tolerance (tests/test_smoke.py:50-51:
 rtol 2e-4, atol 2e-3); energies at rtol 2e-5 unless stated."""
+import os
+import subprocess
+import sys
 from types import SimpleNamespace
 
 import jax
@@ -10,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import openmm_velocityverlet_tpu as jpkg
 import openmm_velocityverlet_tpu_torch as tpkg
 from openmm_velocityverlet_tpu.integrators import stepping as jstep
@@ -19,6 +23,7 @@ from openmm_velocityverlet_tpu.ops import ewald as jew
 from openmm_velocityverlet_tpu.ops import mol_terms as jmol
 from openmm_velocityverlet_tpu.ops import nonbonded as jnb
 from openmm_velocityverlet_tpu.ops import term_forces as jtf
+from openmm_velocityverlet_tpu_torch import kernels
 from openmm_velocityverlet_tpu_torch.integrators import stepping as tstep
 from openmm_velocityverlet_tpu_torch.models.drude_water import drude_water_box
 from openmm_velocityverlet_tpu_torch.ops import constraints as tcons
@@ -348,6 +353,74 @@ def test_shake_rattle_match_jax(kind):
     ref = pos[c[:, 0]] - pos[c[:, 1]]
     rv = np.sum((v_t.numpy()[c[:, 0]] - v_t.numpy()[c[:, 1]]) * ref, -1)
     assert np.max(np.abs(rv)) < 1e-4
+
+
+@pytest.mark.parametrize("velocities", [False, True])
+def test_constraint_clusters_on_cpu_take_the_plain_version(velocities):
+    """Five buckets (K = 1 to 4, the CH3 and CH4 stars among them), a share
+    of the clusters straddling the box faces: a CPU call through the entry
+    point runs the plain version, bitwise, launches no kernel and loads no
+    kernel library; it agrees with the JAX package as the test above."""
+    pairs, dists, inv_m, pos, new, vel, box = chip_smoke.cluster_system(
+        5, {"swm4": 60, "ch3": 20, "k1": 10, "k2": 10, "ch4": 10})
+    tc = tcons.build_constraint_data(pairs, dists, inv_m, device="cpu")
+    jc = jcons.build_constraint_data(pairs, dists, inv_m)
+    assert sorted((bk["K"], bk["A"]) for bk in tc.buckets) == [
+        (1, 2), (2, 3), (3, 3), (3, 4), (4, 5)]
+    cc = tcons.constraint_clusters
+    before = (cc.launches, cc.shake_launches, cc.rattle_launches)
+    target = vel if velocities else new
+    if velocities:
+        out = tcons.apply_velocity_constraints(_t(pos), _t(vel), _t(box), tc,
+                                               _t(inv_m))
+        plain = tcons.solve_velocity_clusters(_t(pos), _t(vel), _t(box), tc)
+        jout = jcons.apply_velocity_constraints(
+            jnp.asarray(pos), jnp.asarray(vel), jnp.asarray(box), jc,
+            jnp.asarray(inv_m))
+        tol = dict(rtol=1e-5, atol=1e-5)
+    else:
+        out = tcons.apply_position_constraints(_t(pos), _t(new), _t(box), tc,
+                                               _t(inv_m))
+        plain = tcons.solve_position_clusters(_t(pos), _t(new), _t(box), tc)
+        jout = jcons.apply_position_constraints(
+            jnp.asarray(pos), jnp.asarray(new), jnp.asarray(box), jc,
+            jnp.asarray(inv_m))
+        tol = dict(rtol=0, atol=2e-6)
+    assert torch.equal(out, plain)
+    assert (cc.launches, cc.shake_launches, cc.rattle_launches) == before
+    assert "constraint_clusters" not in kernels._loaded
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), **tol)
+    free = ~tc.atom_in_cluster.numpy()
+    assert free.any()
+    np.testing.assert_array_equal(out.numpy()[free], target[free])
+    rel_pos, rel_vel = chip_smoke.constraint_residuals(
+        pos if velocities else out.numpy(), out.numpy() if velocities
+        else None, pairs, dists, box)
+    if velocities:
+        assert rel_vel < 1e-4
+    else:
+        assert rel_pos < 2e-5
+
+
+def test_constraints_import_without_nvcc():
+    """The constraints module, and the package, import where no nvcc can be
+    found: the kernel library is built only at a CUDA call."""
+    env = dict(os.environ, PATH=os.path.dirname(sys.executable))
+    code = ("import shutil, sys; "
+            "from openmm_velocityverlet_tpu_torch.ops import constraints; "
+            "from openmm_velocityverlet_tpu_torch import kernels; "
+            "cc = constraints.constraint_clusters; "
+            "assert cc.launches == cc.shake_launches == 0; "
+            "assert cc.rattle_launches == 0; "
+            "assert 'constraint_clusters' in kernels.SOURCES; "
+            "assert not kernels._loaded; "
+            "print(shutil.which('nvcc'))")
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         cwd=os.path.dirname(os.path.dirname(
+                             os.path.abspath(__file__))),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "None"
 
 
 @pytest.mark.parametrize("use_com", [True, False])
