@@ -6,11 +6,10 @@ VVIntegrator.cpp:232-338), or the vanilla VV scheme (stepVV) after
 ``setUseMiddleScheme(False)``, eagerly on ``device`` (the card unless the
 caller passes ``device="cpu"``): CM-motion removal, the Monte Carlo
 barostat's attempt every ``frequency`` steps, forces with the cached pair
-sort (plist list or z band) plus the extra forces (E-field, cosine
-acceleration; in the VV scheme also the Langevin drag and noise), the
-kicks, RATTLE, the TGNH thermostat with the cosine velocity bias removed
-and restored around it, the Langevin Ornstein-Uhlenbeck map (middle
-scheme), drift on compensated two-float positions, SHAKE with its velocity
+sort plus the extra forces (E-field, cosine acceleration; in the VV scheme
+also the Langevin drag and noise), the kicks, RATTLE, the TGNH thermostat
+with the cosine velocity bias removed and restored around it, the Langevin
+Ornstein-Uhlenbeck map (middle scheme), drift on compensated two-float positions, SHAKE with its velocity
 correction, the Drude hard wall and the image-charge sync (each image takes
 its parent's x, y and the mirrored z, a virtual site's parent as placed;
 ``pos_err`` is zeroed on the rows it moved).  The E-field's force on a
@@ -20,16 +19,18 @@ step, across ``step()`` calls and cache rebuilds; ``set_positions`` and
 ``set_velocities`` invalidate them.  Langevin noise is drawn from
 ``State.generator`` (its numbers differ from the JAX threefry stream).
 
-The steps run in segments: the pair
-cache is rebuilt at the entry of each ``step()``, every ``sort_refresh``
-steps, and right after a step whose coverage flag tripped.  Reading that
-flag is the one host synchronisation of a step (with ``strict_pairs`` the
-evaluator reads it before the sweep, since the step's forces depend on
-it), and checking a fresh plist cache's overflow flag the one of a rebuild
-(both counted in ``host_syncs``).  Unlike the JAX
-package, a flagged rebuild (list overflow, or a nowrap frame that no longer
-fits) is refitted from the current configuration before it runs, instead of
-running the flagged list (ROADMAP C).
+The steps run in segments when the evaluator's pair sweep
+(``ForceEvaluator.pairs``, chosen there) carries a cache: the cache is
+rebuilt at the entry of each ``step()``, every ``sort_refresh`` steps, and
+right after a step whose coverage flag tripped.  Reading that flag is the
+one host synchronisation of a step (a sweep with ``host_flag`` reads it
+before the sweep, since the step's forces depend on it), and the sweep's
+rebuild reports its own (one a build of a pair list, whose overflow flag
+it checks); both are counted in ``host_syncs``.  Unlike the JAX package, a
+flagged pair list (overflow, or a nowrap frame that no longer fits) is
+refitted from the current configuration before it runs, instead of running
+the flagged list (ROADMAP C); the sweep's rebuild does that and reports its
+refits.
 
 Constant voltage: when the image pairs are a contiguous trailing block
 mirroring the block just before it, with q_img = -q_parent exactly, the
@@ -104,11 +105,10 @@ def image_mirror(data: IntegratorData, charges):
 class Context:
     def __init__(self, system: System, integrator: VVIntegrator,
                  external_forces: Sequence = (), barostat=None,
-                 positions=None, box=None, row_block: int = 1024,
-                 ewald_chunk: int = 4096, sort_refresh: int = 120,
-                 pair_ts: int = 0, fold_exc14: bool = False,
-                 recip: str = "exact", mesh=None,
-                 strict_pairs: bool = False, pair_kernel: str = "auto",
+                 positions=None, box=None, ewald_chunk: int = 4096,
+                 sort_refresh: int = 120, pair_ts: int = 0,
+                 fold_exc14: bool = False, recip: str = "exact", mesh=None,
+                 strict_pairs: bool = False, pair_kernel: str = "plist",
                  device="cuda"):
         """On a mesh the context runs on the mesh's device, which
         ``device`` must name in kind ("cpu" for a host mesh)."""
@@ -140,7 +140,7 @@ class Context:
                                  if mesh is None else None)
             self.evaluator = ForceEvaluator(
                 system, external_forces, ewald_chunk=ewald_chunk,
-                row_block=row_block, pair_ts=pair_ts, fold_exc14=fold_exc14,
+                pair_ts=pair_ts, fold_exc14=fold_exc14,
                 recip=recip, box_hint=box, pos_hint=positions, mesh=mesh,
                 strict_pairs=strict_pairs, pair_kernel=pair_kernel,
                 image_mirror=self.image_mirror, device=self.device)
@@ -210,11 +210,9 @@ class Context:
             self.coverage_rebuilds = 0
             self.refits = 0
             self.host_syncs = 0
-            # the barostat's attempts and acceptances since construction, and
-            # the box scale of its last accepted move
+            # the barostat's attempts and acceptances since construction
             self.baro_attempts = 0
             self.baro_accepts = 0
-            self.baro_last_scale = None
             if positions is not None:
                 self.set_positions(positions)
             self._sync()
@@ -293,13 +291,6 @@ class Context:
     def kinetic_energy(self):
         return float(stepping.kinetic_energy(self.state.vel, self._masses))
 
-    def _refit(self, pos, box):
-        with trace.span("loop.refit"):
-            note = self.evaluator.refit_pair_list(pos, box)
-        self.refits += 1
-        print(f"[vv-torch] pair list refit after a flagged rebuild: {note}",
-              file=sys.stderr)
-
     def _energy_query(self, query):
         """The one rule of the energy queries, which build their own pair
         list: ``query(full_list)`` evaluates through
@@ -310,12 +301,13 @@ class Context:
         list came back flagged (overflow, or a nowrap frame that no longer
         fits) it missed pairs, and the query is repeated on the full list,
         which cannot be flagged.  Returns (result, the values read before
-        the flag)."""
-        plist = self.evaluator.pair_mode == "plist"
+        the flag).  A sweep whose query flag is never set
+        (``query_flag`` False) has its flag dropped unread."""
+        flagged = self.evaluator.pairs.query_flag
         with trace.span("energy.query"):
             for full in (False, True):
                 result, reads = query(full)
-                reads = reads if plist else reads[:-1]
+                reads = reads if flagged else reads[:-1]
                 values = []
                 if reads:
                     flags = torch.stack([torch.as_tensor(
@@ -325,7 +317,7 @@ class Context:
                         self.mesh.broadcast(flags)
                     values = [bool(v) for v in flags.tolist()]
                     self.host_syncs += 1
-                if not plist:
+                if not flagged:
                     return result, values
                 if not values[-1]:
                     return result, values[:-1]
@@ -368,30 +360,27 @@ class Context:
 
     # ------------------------------------------------------------ stepping
     def _fresh_cache(self):
-        """A pair cache for the current positions.  A z-band cache has no
-        list to flag; a plist rebuild whose list overflowed or whose nowrap
-        frame budget failed refits the list from the current configuration
-        and rebuilds (one host read per plist rebuild)."""
+        """A pair cache for the current positions, from the sweep's
+        rebuild, which reports its builds, host reads and refits (a pair
+        list that came back flagged is refitted and built again)."""
         with trace.span("loop.rebuild"):
             self._sync()
             ev, st = self.evaluator, self.state
-            if ev.pair_mode == "band":
-                self.rebuilds += 1
-                return ev.make_pair_cache(st.pos, st.box)
-            for _ in range(3):
-                cache = ev.make_pair_cache(st.pos, st.box)
-                self.rebuilds += 1
-                self.host_syncs += 1
-                if not bool(cache.overflow):
-                    return cache
-                self._refit(st.pos, st.box)
-        raise RuntimeError("pair list still flagged after refitting")
+            cache, builds, reads, notes = ev.pairs.rebuild(
+                ev.place_vsites(st.pos), st.box)
+            self.rebuilds += builds
+            self.host_syncs += reads
+            self.refits += len(notes)
+            for note in notes:
+                print(f"[vv-torch] pair list refit after a flagged rebuild: "
+                      f"{note}", file=sys.stderr)
+            return cache
 
     @torch.no_grad()
     def step(self, n: int):
         """Advance ``n`` steps of the integrator's scheme in cache segments
         (see the module doc)."""
-        ev = self.evaluator
+        cached = self.evaluator.pairs.carries_cache
         one_step = self._step_middle if self.data.use_middle else \
             self._step_vv
         if self.mesh is not None:
@@ -401,19 +390,19 @@ class Context:
         baro = self.barostat
         while done < n:
             with trace.span("loop.segment"):
-                cache = self._fresh_cache() if ev.uses_band else None
+                cache = self._fresh_cache() if cached else None
                 lim = min(done + self.sort_refresh, n)
                 while done < lim:
                     if baro is not None \
                             and self.state.step % baro.frequency == 0 \
-                            and self._barostat_attempt() and ev.uses_band:
+                            and self._barostat_attempt() and cached:
                         cache = self._fresh_cache()
                     with trace.span("step", self.state.step):
                         cov = one_step(cache)
                     done += 1
-                    if ev.uses_band:
-                        # with strict_pairs the evaluator has read the flag
-                        # already, before the kick, and cov is a Python bool
+                    if cached:
+                        # a sweep with host_flag has read the flag already,
+                        # before the kick, and cov is a Python bool
                         self.host_syncs += 1
                         with trace.span("loop.flag_read"):
                             tripped = bool(cov)
@@ -447,12 +436,11 @@ class Context:
                                              st.pos, st.box, self._baro_mol,
                                              energy, draws)
                 return move, [move[0], flags[0] | flags[1]]
-            (_, pos, box, bst, scale), (accepted,) = self._energy_query(query)
+            (_, pos, box, bst, _), (accepted,) = self._energy_query(query)
             self.baro_state = bst
             self.baro_attempts += 1
             if accepted:
                 self.baro_accepts += 1
-                self.baro_last_scale = scale
                 self.state = st.replace(pos=pos, box=box,
                                         pos_err=torch.zeros_like(st.pos_err))
                 self._forces_valid = False
@@ -591,7 +579,7 @@ class Context:
         positions, half kick, RATTLE, thermostat.  The new forces are
         carried into the next step; returns the coverage flag of their
         evaluation."""
-        data, cons, st, ev = self.data, self.cons, self.state, self.evaluator
+        data, cons, st = self.data, self.cons, self.state
         has_cons = cons.n_constraints > 0
         has_nh = data.nh_normal.shape[0] + data.nh_pairs.shape[0] > 0
         vel = self._remove_cm_motion(st.vel)
@@ -600,7 +588,7 @@ class Context:
             F = self._forces
         else:
             F, _, _ = self._step_forces(pos, vel, box, cache, None)
-            if ev.strict_pairs and ev.uses_band:
+            if self.evaluator.pairs.host_flag:
                 self.host_syncs += 1
         dt = data.dt
         if has_nh:

@@ -1,7 +1,8 @@
 """Dense all-pairs direct-space nonbonded sweep (counterpart of
 ``openmm_velocityverlet_tpu/ops/allpairs.py``): the static pair-table
 builder (host numpy, identical output), the shared pair math, and the dense
-torch sweep that serves as the CPU oracle of the plist pair kernel.
+torch sweep that serves as the CPU oracle of the plist pair kernel, and
+``DenseSweep``, that sweep as a ``ForceEvaluator`` holds it.
 
 * pair LJ parameters come from the per-type (T,T) tables (a one-hot
   contraction, exact in float32);
@@ -422,3 +423,26 @@ def direct_space_dense(pos, box, charges, tables, beta, r_cutoff,
         e_lj, e_coul, e_corr = e_lj + d_lj, e_coul + d_coul, e_corr + d_corr
         forces = forces.index_add(0, i, f_adj).index_add(0, j, -f_adj)
     return e_lj, e_coul, e_corr, e14_c, e14_l, forces
+
+
+class DenseSweep:
+    """The dense all-pairs sweep for one System on one device, as a
+    ``ForceEvaluator`` holds it: no plan, no cache, and a coverage flag
+    that is never set."""
+    mode = "dense"
+    carries_cache = query_flag = host_flag = False
+
+    def __init__(self, system, tables, device):
+        self.system, self.tables = system, tables
+        self.charges = torch.as_tensor(
+            np.asarray(system.charges).astype(np.float32), device=device)
+
+    def __call__(self, pos, box, cache=None, want_energy: bool = True,
+                 full_list: bool = False):
+        """(e_lj, e_coul, e_corr, e14_coul, e14_lj, forces, flag) at the
+        placed ``pos``."""
+        s = self.system
+        return direct_space_dense(
+            pos, box, self.charges, self.tables, s.ewald_beta, s.r_cutoff,
+            r_switch=s.r_switch) + (
+                torch.zeros((), dtype=torch.bool, device=pos.device),)

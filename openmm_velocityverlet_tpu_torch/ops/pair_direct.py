@@ -1,8 +1,9 @@
 """``direct_space_tiled``: the tiled direct-space sweep with every branch of
 the JAX ``openmm_velocityverlet_tpu/ops/pallas_pair.py:direct_space_pallas``
 (the JAX package's stand-in for ``direct_space_dense``).  ``ForceEvaluator``
-picks its sweep itself and does not call this; it is the public entry to the
-rectangular sweep (kernel B3) and runs the others through their modules."""
+holds its own sweep object (``forces.pair_sweep``) and does not call this;
+it is the public entry to the rectangular sweep (kernel B3) and runs the
+others through their modules."""
 from __future__ import annotations
 
 import numpy as np

@@ -2,7 +2,9 @@
 (counterpart of the plist half of ``openmm_velocityverlet_tpu/ops/
 pallas_pair.py``: ``_pfit``, ``PairCache``, ``make_pair_cache``,
 ``plist_coverage_bad``, the host-numpy sizing helpers,
-``residual_adjustment`` and the plist branch of ``direct_space_pallas``).
+``residual_adjustment`` and the plist branch of ``direct_space_pallas``),
+and ``PlistSweep``, the sweep a ``ForceEvaluator`` holds in plist mode: its
+plan, cache rebuild with the refit of a flagged list, and call.
 
 Atoms are sorted in 3-D Morton order (or by wrapped z), cut into tiles of
 ``ts`` atoms, and only tile pairs whose circular AABBs come within
@@ -25,7 +27,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .. import kernels
+from .. import kernels, trace
 from ..units import ONE_4PI_EPS0
 from .allpairs import residual_pair_terms
 
@@ -552,8 +554,8 @@ def count_evaluations_np(pos, box, ts: int, rc_cand: float, r_cutoff: float,
     chunk's bounding box (taken about the chunk's first atom, grown by 0.001
     nm), rounded up to the kernel's rounds of four columns, times 32 rows.
     The model leaves out the nowrap frame and the columns an entry with
-    exclusions keeps whatever their distance.  ``ForceEvaluator`` sizes its
-    tile choice on it."""
+    exclusions keeps whatever their distance.  ``PlistSweep.plan`` sizes
+    its tile choice on it."""
     pos = np.asarray(pos, np.float64)
     box = np.asarray(box, np.float64).reshape(3)
     cand, order = _candidates_np(pos, box, ts, rc_cand, mode, inert)
@@ -929,3 +931,200 @@ def direct_space_plist(pos, box, charges, tables, beta, r_cutoff, ts: int,
         forces, r_switch=r_switch)
     z = torch.zeros((), dtype=torch.float32, device=dev)
     return e_lj, e_coul, e_corr, z, z, forces, flag
+
+
+# ------------------------------------------------------- the plist sweep
+# the skin of the candidate radius: a list holds the tile pairs within
+# cutoff + SKIN, and the coverage check re-verifies it every step
+SKIN = 0.1
+# tile sizes the plan chooses from (kernel B1 takes any multiple of 32 up to
+# 384), and the cost of one list slot (a row x column place of an entry's
+# ts x ts) in pair evaluations: kernel B1 tests every 32 x 32 chunk of slots
+# against the cutoff and evaluates only the columns in reach, and its device
+# time at 19,500 atoms on an NVIDIA H100 80GB HBM3 (700 W) fits
+# a x evaluations + b x slots + c with b / a as below (chip_smoke.py's
+# tile-size sweep prints the fit)
+PLIST_TILE_SIZES = (32, 64, 128, 256)
+PLIST_SLOT_COST = 0.6
+
+
+def inert_rows(system):
+    """(N,) bool of the force-inert particles (massless, not a virtual
+    site), whose forces are discarded, or None without any: inert-inert
+    tile pairs leave the step's list."""
+    inert = np.asarray(system.inv_masses) == 0
+    vidx = np.asarray(system.vsite_index).reshape(-1)
+    if vidx.size:
+        inert[vidx] = False
+    return inert if inert.any() else None
+
+
+def plist_cost(pos, box, ts: int, key: str, r_cutoff: float, inert=None):
+    """(cost, entries) of kernel B1 over a list of tile size ``ts`` sorted
+    by ``key`` on this configuration: the modelled pair evaluations after
+    its column skip plus PLIST_SLOT_COST a slot."""
+    entries, evals = count_evaluations_np(pos, box, ts, r_cutoff + SKIN,
+                                          r_cutoff, mode=key, inert=inert)
+    return evals + PLIST_SLOT_COST * entries * ts * ts, entries
+
+
+class PlistSweep:
+    """The tile-pair-list sweep of kernel B1 for one System on one device:
+    its plan (tile size ``ts``, sort key ``sort``, the capacities ``cap``
+    of the step's list, inert tile pairs culled, and ``cap_all`` of the
+    energy queries' list, none culled, and the ``nowrap`` axes), its cache
+    rebuild and its call.  A capacity of 0 is the full triangle of tile
+    pairs.  ``plan`` chooses the plan from a configuration.
+
+    Energy queries (no cache given) build their own list of capacity
+    ``cap_all``; with ``full_list`` it holds every tile pair's place and
+    takes the wrapped frame, so it is never flagged.  ``strict`` reads the
+    step's coverage flag on the host and takes kernel B2's full sweep when
+    it is set (``direct_space_plist``)."""
+    mode = "plist"
+    # the step carries a cache; an energy query's flag can be set
+    carries_cache = True
+    query_flag = True
+
+    def __init__(self, system, tables, device, *, ts: int,
+                 sort: str = "morton", cap: int = 0, cap_all: int = 0,
+                 nowrap=(False, False, False), strict: bool = False):
+        self.system, self.tables = system, tables
+        self.ts, self.sort, self.nowrap = int(ts), sort, tuple(nowrap)
+        n_tiles = -(-system.n_atoms // self.ts)
+        self.full = n_tiles * (n_tiles + 1) // 2
+        self.cap, self.cap_all = cap or self.full, cap_all or self.full
+        # with strict the step's flag comes back read on the host
+        self.strict = self.host_flag = bool(strict)
+        self.rc_cand = system.r_cutoff + SKIN
+        self.inert = inert_rows(system)
+        self.charges = torch.as_tensor(
+            np.asarray(system.charges).astype(np.float32), device=device)
+        self.statics = padded_statics(system.charges, tables, self.ts,
+                                      device)
+
+    @classmethod
+    def plan(cls, system, tables, device, pos=None, box=None, ts: int = 0,
+             strict: bool = False) -> "PlistSweep":
+        """The sweep whose plan kernel B1's cost model picks on the
+        configuration ``pos`` in ``box`` (host arrays): jointly the sort key
+        and tile size minimising the pair evaluations left by its column
+        skip (a host-side model over the exact candidate enumeration) plus
+        PLIST_SLOT_COST for every slot of the list, or the sort key alone
+        when ``ts`` is given; then both lists sized and the nowrap axes
+        chosen on it.  The constant was measured on the card, not carried
+        over from the TPU kernel's slots + 6000 an entry, where a tile was a
+        multiple of 128 lanes and an entry a grid step.  Candidates go by
+        ascending slot count, and one whose slots alone cost more than the
+        best so far is not modelled.  Without a configuration: 32-atom tiles
+        (or ``ts``) in Morton order, full lists, no nowrap axis."""
+        if pos is None or box is None:
+            return cls(system, tables, device, ts=ts or 32, strict=strict)
+        rc_cand = system.r_cutoff + SKIN
+        inert = inert_rows(system)
+        if ts:
+            cnts = {key: count_candidates_np(pos, box, ts, rc_cand,
+                                             mode=key, inert=inert)
+                    for key in ("z", "morton")}
+            sort = min(cnts, key=cnts.get)
+        else:
+            slots = sorted(
+                (count_candidates_np(pos, box, cand, rc_cand, mode=key,
+                                     inert=inert) * cand * cand, cand, key)
+                for key in ("z", "morton") for cand in PLIST_TILE_SIZES)
+            best = None
+            for n_slots, cand, key in slots:
+                if best is not None and PLIST_SLOT_COST * n_slots >= best[0]:
+                    break
+                cost = plist_cost(pos, box, cand, key, system.r_cutoff,
+                                  inert)[0]
+                if best is None or cost < best[0]:
+                    best = (cost, cand, key)
+            _, ts, sort = best
+        return cls.sized(system, tables, device, pos, box, ts, sort, strict)
+
+    @classmethod
+    def sized(cls, system, tables, device, pos, box, ts: int, sort: str,
+              strict: bool = False) -> "PlistSweep":
+        """The sweep at tile size ``ts`` and sort key ``sort`` with both
+        lists sized and the nowrap axes chosen for ``pos`` in ``box``."""
+        sweep = cls(system, tables, device, ts=ts, sort=sort, strict=strict)
+        sweep._fit(pos, box)
+        return sweep
+
+    def _fit(self, pos, box, grow_only: bool = False, cnt=None):
+        """The nowrap axes for ``pos``, and the capacities of both lists:
+        the candidates on ``pos`` x 1.6 + 64, at most the full triangle;
+        with ``grow_only`` a capacity changes only where the candidates
+        outgrew it.  ``cnt`` is the culled count when the caller has
+        it."""
+        self.nowrap = nowrap_axes_np(pos, box, self.ts, self.rc_cand,
+                                     mode=self.sort)
+
+        def count(inert):
+            return count_candidates_np(pos, box, self.ts, self.rc_cand,
+                                       mode=self.sort, inert=inert)
+        if cnt is None:
+            cnt = count(self.inert)
+        cnt_all = cnt if self.inert is None else count(None)
+        if not grow_only or cnt > self.cap:
+            self.cap = min(self.full, int(cnt * 1.6) + 64)
+        if not grow_only or cnt_all > self.cap_all:
+            self.cap_all = min(self.full, int(cnt_all * 1.6) + 64)
+
+    def refit(self, pos, box) -> str:
+        """Re-size the list from the current (placed) positions after a
+        rebuild came back flagged: re-choose the sort key (a lattice start
+        favours the z sort, whose tiles become slabs across the box once it
+        has melted) and the nowrap axes (their frame budget no longer holds
+        either), and grow the capacities if the candidates outgrew them.
+        The tile size stays: the padded per-atom tables are built for it.
+        The JAX package keeps all of these fixed from construction and runs
+        the flagged list anyway (ROADMAP C).  Returns a note of what
+        changed."""
+        pos = np.asarray(pos.detach().cpu(), np.float64)
+        box = np.asarray(box.detach().cpu(), np.float64)
+        old = (self.sort, self.nowrap, self.cap, self.cap_all)
+        costs = {key: plist_cost(pos, box, self.ts, key,
+                                 self.system.r_cutoff, self.inert)
+                 for key in ("z", "morton")}
+        self.sort = min(costs, key=lambda key: costs[key][0])
+        self._fit(pos, box, grow_only=True, cnt=costs[self.sort][1])
+        return (f"sort {old[0]} -> {self.sort}, nowrap {old[1]} -> "
+                f"{self.nowrap}, plist_cap {old[2]} -> {self.cap}, energy "
+                f"list {old[3]} -> {self.cap_all}")
+
+    def make_cache(self, pos, box) -> PairCache:
+        """The sorted layout and the step's list for the placed ``pos``."""
+        return make_pair_cache(
+            pos, box, self.system.charges, self.tables, self.ts,
+            mode=self.sort, cap=self.cap, rc_cand=self.rc_cand,
+            inert=self.inert, nowrap=self.nowrap, statics=self.statics)
+
+    def rebuild(self, pos, box):
+        """A cache for the placed ``pos``: a build whose list overflowed or
+        whose nowrap frame failed is refitted and built again, up to three
+        builds, each with one host read of its flag.  Returns (cache,
+        builds, host reads, the refits' notes)."""
+        notes = []
+        for builds in (1, 2, 3):
+            cache = self.make_cache(pos, box)
+            if not bool(cache.overflow):
+                return cache, builds, builds, notes
+            with trace.span("loop.refit"):
+                notes.append(self.refit(pos, box))
+        raise RuntimeError("pair list still flagged after refitting")
+
+    def __call__(self, pos, box, cache=None, want_energy: bool = True,
+                 full_list: bool = False):
+        """(e_lj, e_coul, e_corr, e14_coul, e14_lj, forces, flag) at the
+        placed ``pos``."""
+        s = self.system
+        cap, nowrap = self.cap_all, self.nowrap
+        if full_list and cache is None:
+            cap, nowrap = self.full, (False, False, False)
+        return direct_space_plist(
+            pos, box, self.charges, self.tables, s.ewald_beta, s.r_cutoff,
+            self.ts, want_energy=want_energy, cache=cache, plist_cap=cap,
+            skin=SKIN, plist_sort=self.sort, r_switch=s.r_switch,
+            strict=self.strict, nowrap=nowrap, statics=self.statics)

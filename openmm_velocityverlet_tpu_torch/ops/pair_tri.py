@@ -31,6 +31,9 @@ folded 1-4 pair, which the skip must leave alone.  ``skip_model_np`` is a
 numpy model of what the kernel then evaluates.  ``tri_pair`` also has the
 JAX kernel's row-sharded form (``row_off``, ``n_tiles_g``), which
 ``banded_sweep_sharded`` runs on each rank of a mesh.
+
+``BandSweep`` is the sweep a ``ForceEvaluator`` holds in band mode (and on
+a mesh, in its split form): its plan, cache rebuild and call.
 """
 from __future__ import annotations
 
@@ -43,7 +46,7 @@ import torch
 
 from .. import kernels
 from ..units import ONE_4PI_EPS0
-from .pair_plist import (_CAP3, _REF_BATCH_PAIRS, MAX_EXCL_OFFSET,
+from .pair_plist import (_CAP3, _REF_BATCH_PAIRS, MAX_EXCL_OFFSET, SKIN,
                          _kernel_scalars, pair_math, residual_adjustment)
 
 MODES = ("band", "far", "bandall")
@@ -527,7 +530,7 @@ def skip_model_np(pos, real, box, marked, ts: int, r_cutoff: float,
     cutoff of the row chunk's box.  ``visited``, an (n_pad, n_pad) bool
     array, is filled with the (row, column) pairs evaluated (small systems:
     the tests hold it against the pairs that must not be dropped).
-    ``ForceEvaluator`` costs its band tile sizes with it."""
+    ``BandSweep.plan`` costs its tile sizes with it (``band_cost``)."""
     pos = np.asarray(pos, np.float64)
     box = np.asarray(box, np.float64).reshape(3)
     real = np.asarray(real, bool)
@@ -868,3 +871,169 @@ def direct_space_band(pos, box, charges, tables, beta, r_cutoff, ts: int,
         pos, box, charges, tables, beta, r_cutoff, e[0], e[1], e[2], forces,
         r_switch=r_switch)
     return e_lj, e_coul, e_corr, e[3], e[4], forces, flag
+
+
+# -------------------------------------------------------- the band sweep
+# tile sizes the band plan chooses from (kernel B2 takes any multiple of 32
+# up to 768), and the cost of one item it runs (a row chunk x column chunk of
+# 32 x 32 atoms: a load, a vote and a partial written) in pair evaluations
+BAND_TILE_SIZES = (256, 384, 512, 640, 768)
+BAND_ITEM_COST = 200.0
+
+
+def band_cost(pos, box, ts: int, band_w: int, r_cutoff: float,
+              tile_multiple: int = 1) -> float:
+    """Cost of kernel B2's banded sweep at tile size ``ts`` on this
+    configuration: the modelled pair evaluations after its skips plus
+    BAND_ITEM_COST an item (marked chunk pairs left out: they are the same
+    few at every tile size)."""
+    pos = np.asarray(pos, np.float64)
+    order = band_layout_np(pos, box, ts, tile_multiple=tile_multiple)
+    n = pos.shape[0]
+    real = order < n
+    pos2d = np.concatenate([pos, np.full((order.shape[0] - n, 3),
+                                         1e6)])[order]
+    items, evals = skip_model_np(pos2d, real, box, None, ts, r_cutoff,
+                                 band_w=band_w)
+    return evals + BAND_ITEM_COST * items
+
+
+def band_atoms(system, pos=None, box=None) -> float:
+    """Atoms inside any (cutoff + skin) z-window: from the densest window
+    of ``pos`` x 1.10, from the mean density of ``box`` x 1.08 without
+    positions, 0 without a box."""
+    if box is None or system.n_atoms == 0:
+        return 0.0
+    rc_cand = system.r_cutoff + SKIN
+    lz = float(np.asarray(box).reshape(-1)[2])
+    if pos is None:
+        return rc_cand * (system.n_atoms / lz) * 1.08
+    zw = np.asarray(pos)[:, 2] % lz
+    hist = np.histogram(zw, bins=np.arange(0.0, lz + 0.05, 0.05))[0]
+    kwin = max(1, int(np.ceil(rc_cand / 0.05)))
+    wrap = np.concatenate([hist, hist[:kwin]])
+    return float(np.convolve(wrap, np.ones(kwin), mode="valid").max()) \
+        * 1.10
+
+
+class BandSweep:
+    """The z-banded upper-triangle sweep of kernel B2 for one System on one
+    device, which carries the folded 1-4 exceptions: its plan (tile size
+    ``ts``, band width ``band_w``), its cache rebuild and its call.  When
+    the band is not eligible (too few tiles for its width) the step runs
+    the unsorted band + far sweep and carries no cache.  ``plan`` chooses
+    the plan from a configuration.
+
+    With ``mesh`` it is the split sweep (``banded_sweep_sharded``): each
+    rank runs its share of the row tiles and one all_reduce sums the
+    forces, the pair energies and the coverage flag, then the residual
+    adjustment runs on the sum.  Its cache is padded to a multiple of the
+    mesh size in tiles, ``strict`` is ignored (a flagged step runs on the
+    stale cache and the next one on a rebuilt cache), and a band that is
+    not eligible is refused."""
+    mode = "band"
+    # an energy query's flag is never set
+    query_flag = False
+
+    def __init__(self, system, tables, device, *, ts: int, band_w: int,
+                 strict: bool = False, mesh=None):
+        self.system, self.tables, self.mesh = system, tables, mesh
+        self.ts, self.band_w = int(ts), int(band_w)
+        self.tile_multiple = 1 if mesh is None else mesh.size
+        # the step carries a cache where the band is eligible
+        self.carries_cache = band_eligible(
+            padded_size(system.n_atoms, self.ts), self.ts, self.band_w)
+        if mesh is not None and not self.carries_cache:
+            raise ValueError(
+                f"{system.n_atoms} atoms in tiles of {self.ts} are too few "
+                f"for a band of width {self.band_w}: the mesh's split sweep "
+                "needs an eligible band")
+        self.strict = bool(strict) and mesh is None
+        # the step's flag comes back read on the host
+        self.host_flag = self.strict and self.carries_cache
+        self.charges = torch.as_tensor(
+            np.asarray(system.charges).astype(np.float32), device=device)
+        self.statics = band_statics(
+            system.charges, tables,
+            padded_size(system.n_atoms, self.ts, self.tile_multiple), device)
+
+    @classmethod
+    def plan(cls, system, tables, device, pos=None, box=None, ts: int = 0,
+             strict: bool = False, mesh=None) -> "BandSweep":
+        """The sweep whose tile size minimises kernel B2's cost on the
+        configuration ``pos`` in ``box`` (host arrays; ``ts`` when given):
+        the pair evaluations left by its two skips (``band_cost``) plus
+        BAND_ITEM_COST for every item it runs; without positions, the
+        banded sweep's pair count (the band width quantises to whole
+        tiles).  The band width covers ``band_atoms``.  The TPU's
+        candidates were 512, 640 and 768: its tile was a grid step."""
+        atoms = band_atoms(system, pos, box)
+        if not ts:
+            n = system.n_atoms
+            split = 1 if mesh is None else mesh.size
+            costs = []
+            for cand in BAND_TILE_SIZES:
+                n_pad = padded_size(n, cand)
+                w = int(np.ceil(atoms / cand)) if atoms else 0
+                eligible = w and band_eligible(n_pad, cand, w)
+                if eligible and pos is not None:
+                    cost = band_cost(pos, box, cand, w, system.r_cutoff,
+                                     split)
+                elif eligible:
+                    # the row tiles a mesh pads in count as rows swept
+                    cost = (padded_size(n, cand, split) // cand) \
+                        * (w + 1) * cand * cand
+                elif mesh is not None:
+                    # the split sweep runs only the band
+                    cost = float("inf")
+                else:
+                    cost = n_pad * n_pad // 2
+                costs.append((cost, cand))
+            # the largest tile within a tenth of the cheapest: a start
+            # configuration is often a lattice, whose planes favour no size
+            # by more than that, and once it has melted the thickest slab
+            # makes the most compact chunks (on the card the 19,500-atom
+            # liquid runs ts 768 a third faster than ts 512, which the
+            # lattice start costs 7% cheaper)
+            ts = max((c for c in costs if c[0] <= 1.1 * min(costs)[0]),
+                     key=lambda c: c[1])[1]
+        return cls(system, tables, device, ts=ts,
+                   band_w=int(np.ceil(atoms / ts)) if atoms else 0,
+                   strict=strict, mesh=mesh)
+
+    def make_cache(self, pos, box) -> BandCache:
+        """The z-sorted layout for the placed ``pos``."""
+        return make_pair_cache(pos, box, self.charges, self.tables, self.ts,
+                               tile_multiple=self.tile_multiple,
+                               statics=self.statics, inner_order=True)
+
+    def rebuild(self, pos, box):
+        """A cache for the placed ``pos``: one build, no host read (a band
+        has no list to flag).  Returns (cache, builds, host reads, refit
+        notes), as ``PlistSweep.rebuild``."""
+        return self.make_cache(pos, box), 1, 0, []
+
+    def __call__(self, pos, box, cache=None, want_energy: bool = True,
+                 full_list: bool = False):
+        """(e_lj, e_coul, e_corr, e14_coul, e14_lj, forces, flag) at the
+        placed ``pos``."""
+        s = self.system
+        if self.mesh is None:
+            return direct_space_band(
+                pos, box, self.charges, self.tables, s.ewald_beta,
+                s.r_cutoff, self.ts, self.band_w, want_energy=want_energy,
+                cache=cache, r_switch=s.r_switch, strict=self.strict,
+                statics=self.statics)
+        if cache is None:
+            cache = self.make_cache(pos, box)
+        flag = band_coverage_bad(pos, box, cache, self.ts, self.band_w,
+                                 s.r_cutoff)
+        e_lj, e_coul, e_corr, e14c, e14l, forces, flag = \
+            banded_sweep_sharded(
+                self.mesh, pos, box, self.charges, self.tables,
+                s.ewald_beta, s.r_cutoff, self.ts, self.band_w, cache=cache,
+                want_energy=want_energy, r_switch=s.r_switch, flag=flag)
+        e_lj, e_coul, e_corr, forces = residual_adjustment(
+            pos, box, self.charges, self.tables, s.ewald_beta, s.r_cutoff,
+            e_lj, e_coul, e_corr, forces, r_switch=s.r_switch)
+        return e_lj, e_coul, e_corr, e14c, e14l, forces, flag

@@ -378,8 +378,9 @@ def test_force_evaluator_fold_exc14_matches_jax(jax_pallas_interpret):
              pos_hint=pos, recip="exact", fold_exc14=True, pair_ts=32)
     tf = TFE(ps, box_hint=box, pos_hint=pos, device="cpu", fold_exc14=True,
              pair_ts=32)
-    assert (tf.pair_mode, tf.pair_ts, tf.band_w, tf.uses_band) == (
-        jf.pair_mode, jf.pair_ts, jf.band_w, True)
+    assert (tf.pairs.mode, tf.pairs.ts, tf.pairs.band_w,
+            tf.pairs.carries_cache) == (jf.pair_mode, jf.pair_ts, jf.band_w,
+                                        True)
     assert tf.pair_tables["has_exc14"]
     assert int(tf.pair_tables["exc_term_mask"].sum()) == 2
     bt = torch.as_tensor(box, dtype=torch.float32)
@@ -498,8 +499,8 @@ def test_no_ewald_fluid_builds_and_matches_dense(charge):
     plist = TFE(system, box_hint=box, pos_hint=pos, pair_ts=32, device="cpu")
     band = TFE(system, box_hint=box, pos_hint=pos, pair_ts=32,
                fold_exc14=True, device="cpu")
-    assert plist.pair_mode == "plist" and band.pair_mode == "band"
-    assert band.uses_band
+    assert plist.pairs.mode == "plist" and band.pairs.mode == "band"
+    assert band.pairs.carries_cache
     for want_energy in (True, False):
         td, fd = dense.energy_forces(p, bt, want_energy=want_energy)
         for ev in (plist, band):

@@ -182,7 +182,7 @@ def test_flagged_energy_list_repeats_on_the_full_list():
                                "iso", 1.0, 333.0, 5))
         ev, st = ctx.evaluator, ctx.state
         if cap is not None:
-            ev.plist_cap_all = cap
+            ev.pairs.cap_all = cap
         flagged = bool(ev.energy_forces(st.pos, st.box, return_cov=True)[2])
         assert flagged == (cap is not None)
         terms = ctx.potential_energy_terms()

@@ -360,7 +360,7 @@ def test_edl_context_tracks_jax(middle, jax_pallas_interpret):
     tj, ej, gj, jctx = _edl_run(jpkg, middle, 20)
     tt, et, gt, tctx = _edl_run(tpkg, middle, 20)
     assert tctx.image_mirror == jctx.evaluator.image_mirror is not None
-    assert tctx.evaluator._inert_mask is not None
+    assert tctx.evaluator.pairs.inert is not None
     drift = np.abs(tt - tj).max(axis=(1, 2))
     print("\nmax |dpos| per step (nm): "
           + " ".join(f"{d:.2e}" for d in drift))

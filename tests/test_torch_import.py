@@ -172,7 +172,7 @@ def test_unported_features_raise(tmp_path):
         mps, mpos, mbox = drude_water_box(125)
         ctx = tpkg.Context(mps, tpkg.VVIntegrator(), positions=mpos,
                            box=mbox, pair_ts=32, mesh=mesh, device="cpu")
-        assert (ctx.mesh.size, ctx.evaluator.pair_mode) == (1, "band")
+        assert (ctx.mesh.size, ctx.evaluator.pairs.mode) == (1, "band")
         ctx.step(1)
         assert np.isfinite(ctx.get_positions()).all()
     finally:
@@ -194,8 +194,8 @@ def test_unported_features_raise(tmp_path):
                      (dict(recip="exact_fused"), "plist")):
         ctx = tpkg.Context(ps, integ, positions=pos, box=box, device="cpu",
                            **kw)
-        assert ctx.evaluator.pair_mode == mode
-        assert ctx.evaluator.strict_pairs == kw.get("strict_pairs", False)
+        assert ctx.evaluator.pairs.mode == mode
+        assert ctx.evaluator.pairs.host_flag == kw.get("strict_pairs", False)
         assert ctx.evaluator.recip_method == kw.get("recip", "exact")
     # CMAP (A13) builds, and its term is in the evaluation
     b = tpkg.SystemBuilder()

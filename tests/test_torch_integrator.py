@@ -250,7 +250,7 @@ def test_langevin_thermostat_fdt():
     # plain cutoff Coulomb (ewald_beta 0): the plist sweep, whose Ewald
     # polynomial is identically zero there
     ctx = tpkg.Context(system, integ, positions=pos, box=box, device="cpu")
-    assert ctx.evaluator.pair_mode == "plist"
+    assert ctx.evaluator.pairs.mode == "plist"
     temps = []
     for _ in range(12):
         ctx.step(100)

@@ -143,8 +143,8 @@ def run_band(mesh):
         ctx.step(1)
         traj.append(ctx.get_positions())
     return dict(traj=np.stack(traj), terms=ctx.potential_energy_terms(),
-                ke=ctx.kinetic_energy(), pair_ts=ctx.evaluator.pair_ts,
-                band_w=ctx.evaluator.band_w)
+                ke=ctx.kinetic_energy(), pair_ts=ctx.evaluator.pairs.ts,
+                band_w=ctx.evaluator.pairs.band_w)
 
 
 def run_lj100(mesh):
@@ -264,7 +264,7 @@ def run_cli(workdir):
         ctx = sim.context
         ctx.step(2)
         return dict(size=ctx.mesh.size, backend=ctx.mesh.backend,
-                    pos=ctx.get_positions(), mode=ctx.evaluator.pair_mode)
+                    pos=ctx.get_positions(), mode=ctx.evaluator.pairs.mode)
     finally:
         os.chdir(cwd)
 

@@ -13,9 +13,10 @@ import openmm_velocityverlet_tpu as jpkg
 import openmm_velocityverlet_tpu_torch as tpkg
 from openmm_velocityverlet_tpu.forces import ForceEvaluator as JFE
 from openmm_velocityverlet_tpu.ops import pallas_pair as jpp
-from openmm_velocityverlet_tpu_torch.forces import (PLIST_TILE_SIZES,
-                                                    ForceEvaluator as TFE)
+from openmm_velocityverlet_tpu_torch.forces import ForceEvaluator as TFE
 from openmm_velocityverlet_tpu_torch.models.drude_water import drude_water_box
+from openmm_velocityverlet_tpu_torch.ops.pair_plist import (PLIST_TILE_SIZES,
+                                                        plist_cost)
 from openmm_velocityverlet_tpu_torch.system import system_from_numpy
 from tests.test_smoke import make_lj_fluid
 
@@ -84,10 +85,11 @@ def test_force_evaluator_matches_jax(kind, jax_pallas_interpret):
     # sort key, capacity and nowrap axes must come out as the JAX package's
     auto = TFE(ps, pair_kernel="plist", box_hint=box, pos_hint=pos,
                device="cpu")
-    assert auto.pair_ts in PLIST_TILE_SIZES and jf.pair_ts in (128, 256, 384)
+    assert auto.pairs.ts in PLIST_TILE_SIZES \
+        and jf.pair_ts in (128, 256, 384)
     tf = TFE(ps, pair_kernel="plist", box_hint=box, pos_hint=pos,
              pair_ts=jf.pair_ts, device="cpu")
-    assert (tf.pair_ts, tf.plist_sort, tf.plist_cap, tf.plist_nowrap) == (
+    assert (tf.pairs.ts, tf.pairs.sort, tf.pairs.cap, tf.pairs.nowrap) == (
         jf.pair_ts, jf.plist_sort, jf.plist_cap, jf.plist_nowrap)
     bj = jnp.asarray(box, jnp.float32)
     bt = torch.as_tensor(box, dtype=torch.float32)
@@ -197,9 +199,12 @@ def test_context_routes_track_jax(path, n_mol, opts, jax_pallas_interpret):
              pos_hint=pos, **dict(dict(recip="exact"), **opts))
     tf = TFE(system_from_numpy(js), box_hint=box, pos_hint=pos,
              device="cpu", **opts)
-    assert (tf.pair_mode, tf.pair_ts, tf.band_w, tf.uses_band) == (
-        jf.pair_mode, jf.pair_ts, jf.band_w, jf.uses_band)
-    assert tf.uses_band and tf.recip_method == jf.recip_method
+    p = tf.pairs
+    assert (p.mode, p.ts, p.carries_cache) == (jf.pair_mode, jf.pair_ts,
+                                               jf.uses_band)
+    if p.mode == "band":
+        assert p.band_w == jf.band_w
+    assert p.carries_cache and tf.recip_method == jf.recip_method
     tj, ej, kj = _run(jpkg, js, pos, box, vel, 10, True, **opts)
     tt, et, kt = _run(tpkg, js, pos, box, vel, 10, True, **opts)
     drift = np.abs(tt - tj).max(axis=(1, 2))
@@ -229,15 +234,15 @@ def test_flagged_rebuild_is_refit(bad):
                        device="cpu")
     ev = ctx.evaluator
     if bad == "nowrap":
-        ev.plist_nowrap = (True, True, True)
+        ev.pairs.nowrap = (True, True, True)
     else:
-        ev.plist_cap = 3
+        ev.pairs.cap = 3
     cache = ctx._fresh_cache()
     assert ctx.refits == 1 and not bool(cache.overflow)
     if bad == "nowrap":
-        assert ev.plist_nowrap != (True, True, True)
+        assert ev.pairs.nowrap != (True, True, True)
     else:
-        assert ev.plist_cap > 3
+        assert ev.pairs.cap > 3
     st = ctx.state
     _, f_list = ev.energy_forces(st.pos, st.box, want_energy=False,
                                  pair_cache=cache)
@@ -251,7 +256,7 @@ def test_flagged_rebuild_is_refit(bad):
 
 @pytest.mark.parametrize("ts", [32, 64])
 def test_refit_pair_list_small_tiles(ts):
-    """``refit_pair_list`` at the warp-sized tiles: with the capacity made
+    """``PlistSweep.refit`` at the warp-sized tiles: with the capacity made
     too small and the dearer sort key set, the refit takes the cheaper key
     and grows the capacity to the candidates of the configuration
     with the usual margin, never beyond the n_tiles (n_tiles + 1) / 2 tile
@@ -263,28 +268,70 @@ def test_refit_pair_list_small_tiles(ts):
     pos = _drude_positions(pos)
     ev = TFE(ps, pair_kernel="plist", box_hint=box, pos_hint=pos, pair_ts=ts,
              device="cpu")
-    assert ev.pair_ts == ts
+    sweep = ev.pairs
+    assert sweep.ts == ts
     pt, bt = torch.as_tensor(pos), torch.as_tensor(box, dtype=torch.float32)
     n_tiles = -(-ps.n_atoms // ts)
     bound = n_tiles * (n_tiles + 1) // 2
-    assert ev.plist_cap <= bound
+    assert sweep.cap <= bound
     # the sort key is re-chosen as well: from the dearer one back to the
-    # cheaper one under the evaluator's cost model
-    cost = {key: ev._plist_cost(pos, box, ts, key)[0]
+    # cheaper one under the sweep's cost model
+    cost = {key: plist_cost(pos, box, ts, key, ps.r_cutoff, sweep.inert)[0]
             for key in ("z", "morton")}
-    ev.plist_sort = max(cost, key=cost.get)
-    ev.plist_cap = 3
-    assert bool(ev.make_pair_cache(pt, bt).overflow)
-    ev.refit_pair_list(pt, bt)
-    assert ev.plist_sort == min(cost, key=cost.get)
-    cache = ev.make_pair_cache(pt, bt)
+    sweep.sort = max(cost, key=cost.get)
+    sweep.cap = 3
+    placed = ev.place_vsites(pt)
+    assert bool(sweep.make_cache(placed, bt).overflow)
+    sweep.refit(placed, bt)
+    assert sweep.sort == min(cost, key=cost.get)
+    cache = sweep.make_cache(placed, bt)
     n_active = int((cache.plist & 1).sum())
     assert not bool(cache.overflow)
-    assert n_active <= ev.plist_cap <= bound
-    assert ev.plist_cap == min(bound, int(n_active * 1.6) + 64)
+    assert n_active <= sweep.cap <= bound
+    assert sweep.cap == min(bound, int(n_active * 1.6) + 64)
     _, f_list = ev.energy_forces(pt, bt, want_energy=False, pair_cache=cache)
     fresh = TFE(ps, pair_kernel="plist", box_hint=box, pos_hint=pos,
                 pair_ts=ts, device="cpu")
     _, f_ref = fresh.energy_forces(pt, bt, want_energy=False)
     np.testing.assert_allclose(f_list.numpy(), f_ref.numpy(), rtol=F_RTOL,
                                atol=F_ATOL)
+
+
+# the plans chosen for drude_water_box(216, 0.45) at _drude_positions,
+# recorded on the commit before the pair sweeps became objects of their own:
+# (ts, sort, cap, cap_all, nowrap) of the list, (ts, band_w) of the band;
+# then (carries_cache, query_flag, host_flag), which that commit's
+# evaluator answered as uses_band, pair_mode == "plist" and
+# strict_pairs and uses_band
+PARENT_PLANS = {
+    "plist": ((32, "z", 326, 326, (False, False, True)),
+              (True, True, False)),
+    "band": ((256, 1), (True, False, False)),
+    "strict": ((32, "z", 326, 326, (False, False, True)),
+               (True, True, True)),
+    "dense": ((), (False, False, False)),
+}
+
+
+@pytest.mark.parametrize("case,opts", [
+    ("plist", {}), ("band", dict(fold_exc14=True)),
+    ("strict", dict(strict_pairs=True)), ("dense", dict(pair_kernel="dense"))])
+def test_context_pair_plan_is_the_parents(case, opts):
+    """A Context's pair sweep chooses the plan the evaluator chose before
+    the sweep became an object of its own (recorded on that commit): the
+    list's tile size, sort key, both capacities and nowrap axes, the band's
+    tile size (by its cost model) and width, and the sweep's answers to the
+    segment loop."""
+    ps, pos, box = drude_water_box(216, 0.45)
+    ctx = tpkg.Context(ps, tpkg.VVIntegrator(),
+                       positions=_drude_positions(pos), box=box,
+                       device="cpu", **opts)
+    p = ctx.evaluator.pairs
+    assert p.mode == ("plist" if case == "strict" else case)
+    plan = ()
+    if p.mode == "plist":
+        plan = (p.ts, p.sort, p.cap, p.cap_all, p.nowrap)
+    elif p.mode == "band":
+        plan = (p.ts, p.band_w)
+    assert (plan, (p.carries_cache, p.query_flag, p.host_flag)) \
+        == PARENT_PLANS[case]
