@@ -23,7 +23,10 @@ Phases:
      its skips leave, per pair within the cutoff), with excluded and 1-4
      pairs moved beyond the skip's reach, and over the admitted tile sizes;
      B4/B5 (fused reciprocal) beside the matmul route, both
-     also against a float64 evaluation on 512 atoms; B3 (the
+     also against a float64 evaluation on 512 atoms, and the matmul
+     route's closed-form gradient against its autograd twin
+     (``matmul_twin_phase``: both timed, the route's call counters
+     printed, its chunked calls gated at 0); B3 (the
      rectangular sweep) through its path, direct_space_tiled(symmetric=
      False), and against B1's sweep of the same positions, with its pair
      evaluations per pair within the cutoff (at most B3_MAX_EVALS) beside
@@ -842,6 +845,7 @@ def recip_phase(ctx, label=""):
     t["matmul_route"] = cuda_time_ms(route(lambda p: ewald.reciprocal_energy(
         p, box, q, s.ewald_beta, s.kmax, chunk=ctx.evaluator.ewald_chunk,
         mirror=ctx.image_mirror)), reps=10)
+    t["matmul_twin"] = matmul_twin_phase(ctx, route, label)
     grid = pme.choose_grid(box.cpu().numpy())
     pme_route = route(lambda p: pme.reciprocal_energy_pme(
         p, box, q, s.ewald_beta, grid))
@@ -853,7 +857,8 @@ def recip_phase(ctx, label=""):
           f"({t['b5_device']:.4f} ms device time; plain "
           f"{t['b5_plain']:.4f}); energy + autograd forces: fused route "
           f"{t['fused_route']:.4f} ms, matmul route (ops/ewald.py) "
-          f"{t['matmul_route']:.4f} ms, PME route (ops/pme.py, grid "
+          f"{t['matmul_route']:.4f} ms (its autograd twin "
+          f"{t['matmul_twin']:.4f} ms), PME route (ops/pme.py, grid "
           f"{grid}, all atoms) {t['pme_route']:.4f} ms "
           f"({t['pme_route_device']:.4f} ms device time)")
     phases = pos.shape[0] * k_real
@@ -864,6 +869,45 @@ def recip_phase(ctx, label=""):
     t["b4_err"] = s_err
     t["b5_err"] = f_err
     return t
+
+
+def matmul_twin_phase(ctx, route, label):
+    """The matmul route's closed-form gradient against its autograd twin
+    (``ewald.reciprocal_energy_reference``, one contraction) at the
+    context's positions, with the twin's CUDA-event time; prints the
+    route's call counters and gates its chunked calls at 0 (the build-time
+    rule keeps every shape the script runs in one contraction)."""
+    import torch
+    from openmm_velocityverlet_tpu_torch.ops import ewald
+    s, ev = ctx.system, ctx.evaluator
+    pos, box, q = ctx.state.pos, ctx.state.box, ev.t.charges
+    grads = []
+    for fn in (ewald.reciprocal_energy, ewald.reciprocal_energy_reference):
+        p = pos.detach().requires_grad_(True)
+        with torch.enable_grad():
+            e = fn(p, box, q, s.ewald_beta, s.kmax, mirror=ctx.image_mirror)
+            grads.append((float(e.detach()),
+                          torch.autograd.grad(e, p)[0].double()))
+    (e_c, g_c), (e_t, g_t) = grads
+    scale = float(g_t.abs().max())
+    err = float((g_c - g_t).abs().max())
+    ms = cuda_time_ms(route(lambda p: ewald.reciprocal_energy_reference(
+        p, box, q, s.ewald_beta, s.kmax, mirror=ctx.image_mirror)), reps=10)
+    calls = ewald.reciprocal_energy.calls
+    chunked = ewald.reciprocal_energy.chunked_calls
+    print(f"[recip{label}] matmul route closed form against its autograd "
+          f"twin at {pos.shape[0]} atoms: energy {e_c:.6f} / {e_t:.6f}, max "
+          f"abs gradient difference {err:.3e} (max|g| {scale:.3f}); twin "
+          f"{ms:.4f} ms; evaluator chunk {ev.ewald_chunk}; "
+          f"reciprocal_energy calls {calls}, chunked calls {chunked}")
+    if abs(e_c - e_t) > RECIP_E_RTOL * abs(e_t) \
+            or err > RECIP_F_ATOL_REL * scale:
+        raise AssertionError(f"matmul route{label}: the closed form "
+                             f"disagrees with its autograd twin")
+    if chunked or ev.ewald_chunk:
+        raise AssertionError(f"matmul route{label}: {chunked} chunked calls "
+                             f"(evaluator chunk {ev.ewald_chunk})")
+    return ms
 
 
 def b3_phase(ctx1, system, pos):
@@ -3159,6 +3203,8 @@ def main():
          "plain_ms": rc["b4_plain"], "bound_ms": rc["b4_bound"][0],
          "bound_by": rc["b4_bound"][1], "library_ms": None,
          "device_ms": rc["b4_device"], "matmul_route_ms": rc["matmul_route"],
+         "matmul_twin_ms": rc["matmul_twin"],
+         "edl_matmul_twin_ms": edl["recip"]["matmul_twin"],
          "fused_route_ms": rc["fused_route"], "pme_route_ms": rc["pme_route"],
          "pme_route_device_ms": rc["pme_route_device"],
          "edl_matmul_route_ms": edl["recip"]["matmul_route"],

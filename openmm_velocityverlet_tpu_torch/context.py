@@ -105,7 +105,7 @@ def image_mirror(data: IntegratorData, charges):
 class Context:
     def __init__(self, system: System, integrator: VVIntegrator,
                  external_forces: Sequence = (), barostat=None,
-                 positions=None, box=None, ewald_chunk: int = 4096,
+                 positions=None, box=None, ewald_chunk: int | None = None,
                  sort_refresh: int = 120, pair_ts: int = 0,
                  fold_exc14: bool = False, recip: str = "exact", mesh=None,
                  strict_pairs: bool = False, pair_kernel: str = "plist",

@@ -24,8 +24,11 @@ values, whether the step carries a cache (``carries_cache``), whether an
 energy query's flag can be set (``query_flag``) and whether the step's
 flag comes back read on the host (``host_flag``).  ``strict_pairs=True``
 takes kernel B2's exhaustive sweep on a step whose coverage check trips.
-Reciprocal: ``recip="exact"`` (one matrix product,
-autograd; the port's default), ``"exact_fused"`` (kernels B4/B5), ``"pme"``
+Reciprocal: ``recip="exact"`` (matrix products, the
+gradient in closed form beside the energy; the port's default; its atom
+chunk, 0 unless the phase block would crowd the device's free memory, is
+fixed at construction by ``ewald.chunk_rows`` unless ``ewald_chunk`` gives
+one), ``"exact_fused"`` (kernels B4/B5), ``"pme"``
 (``ops/pme.py``, torch scatter and FFT, autograd; its grid is chosen from
 ``box_hint`` at construction and stays while a barostat scales the box) or
 ``"auto"`` (``pme.choose_reciprocal``'s cost model of the routes on the
@@ -142,7 +145,7 @@ class ForceEvaluator:
 
     def __init__(self, system: System,
                  external_forces: Sequence[Callable] = (),
-                 ewald_chunk: int = 16384, pair_kernel: str = "plist",
+                 ewald_chunk: int | None = None, pair_kernel: str = "plist",
                  box_hint=None, pos_hint=None, pair_ts: int = 0,
                  fold_exc14: bool = False, recip: str = "exact", mesh=None,
                  strict_pairs: bool = False, image_mirror=None,
@@ -160,7 +163,6 @@ class ForceEvaluator:
         # (img0, par0, count, mirror_z) of a contiguous trailing image block
         # mirroring the block just before it (Context checks the layout)
         self.image_mirror = image_mirror
-        self.ewald_chunk = ewald_chunk
         # the JAX choice of reciprocal (forces.py:289-310): "auto" by the
         # cost model, PME on a grid fixed from box_hint
         self.pme_grid = None
@@ -178,6 +180,14 @@ class ForceEvaluator:
             recip = "exact"
         self.recip_method = recip
         dev = self.device
+        # the matmul route's atom chunk, fixed here from the shapes: the
+        # real atoms' phase block against the device's free memory
+        self.ewald_chunk = 0
+        if recip == "exact" and system.ewald_beta > 0:
+            self.ewald_chunk = (ewald.chunk_rows(
+                system.n_atoms if image_mirror is None else image_mirror[0],
+                system.kmax, ewald.free_bytes(dev))
+                if ewald_chunk is None else int(ewald_chunk))
         self.t = system.to(dev)
         # the NBTHOLE sweep's tables and the GB parameters, on the device
         # once (the JAX package rebuilds the former at every trace)

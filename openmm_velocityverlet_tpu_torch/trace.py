@@ -47,7 +47,7 @@ SPANS = {
     "forces.smooth": "reciprocal",          # autograd terms, forward + grad
     "forces.terms": "bonded and molecule terms",
     "forces.external": "externals",         # closures with their own force
-    "recip.mirror": "reciprocal",           # the mirror route, forward
+    "recip.mirror": "reciprocal",           # the mirror route, E and grad
     "step.rattle": "constraints",           # each velocity projection
     "step.shake": "constraints",            # each position solve
     "step.thermostat": "thermostat",        # the TGNH block

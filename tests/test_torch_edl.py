@@ -40,11 +40,23 @@ from tests.test_torch_slice import jax_pallas_interpret  # noqa: F401
 BETA, KMAX = 2.2, (5, 5, 9)
 
 
-def _port_recip(pos, q, box, mirror=None, chunk=0):
-    p = torch.tensor(pos, requires_grad=True)
-    e = tewald.reciprocal_energy(p, torch.tensor(box), torch.tensor(q), BETA,
-                                 KMAX, chunk=chunk, chunk_min_bytes=0.0,
+def _port_recip(pos, q, box, mirror=None, chunk=0, dtype=torch.float32,
+                scale=1.0):
+    p = torch.tensor(pos, dtype=dtype, requires_grad=True)
+    e = tewald.reciprocal_energy(p, torch.tensor(box, dtype=dtype),
+                                 torch.tensor(q), BETA, KMAX, chunk=chunk,
                                  mirror=mirror)
+    (g,) = torch.autograd.grad(e, p, grad_outputs=torch.tensor(
+        scale, dtype=dtype))
+    return float(e.detach()), g.numpy()
+
+
+def _reference_recip(pos, q, box, mirror=None):
+    """float64 autograd of the same energy, one contraction."""
+    p = torch.tensor(pos, dtype=torch.float64, requires_grad=True)
+    e = tewald.reciprocal_energy_reference(
+        p, torch.tensor(box, dtype=torch.float64), torch.tensor(q), BETA,
+        KMAX, mirror=mirror)
     (g,) = torch.autograd.grad(e, p)
     return float(e.detach()), g.numpy()
 
@@ -57,9 +69,18 @@ def _assert_mirror_close(e, g, e_ref, g_ref, n_real):
     assert np.abs(g[n_real:]).max() == 0.0
 
 
-@pytest.mark.parametrize("chunk", [0, 64])
-def test_mirror_reciprocal_matches_jax_and_explicit(chunk):
-    pos, q, box, mirror = _mirrored_system(np.random.default_rng(7))
+@pytest.mark.parametrize("chunk, lz", [
+    pytest.param(0, 8.0, id="0"), pytest.param(64, 8.0, id="64"),
+    pytest.param(0, 3.1, id="0-cubic"), pytest.param(64, 3.1, id="64-cubic")])
+def test_mirror_reciprocal_matches_jax_and_explicit(chunk, lz):
+    """The mirror route's closed form against the explicit 2N route, JAX's
+    mirror route and float64 autograd of the same energy, in a slab box and
+    a cubic one, through one contraction or forced chunks: image rows
+    exactly 0, the backward scaled by the incoming gradient, and the
+    counters."""
+    pos, q, box, mirror = _mirrored_system(np.random.default_rng(7), lz=lz)
+    calls = tewald.reciprocal_energy.calls
+    chunks = tewald.reciprocal_energy.chunked_calls
     e_m, g_m = _port_recip(pos, q, box, mirror, chunk)
     e_x, g_x = _port_recip(pos, q, box, None, chunk)
     n_real = mirror[0]
@@ -68,6 +89,18 @@ def test_mirror_reciprocal_matches_jax_and_explicit(chunk):
         p, jnp.asarray(box), jnp.asarray(q), BETA, KMAX, chunk=chunk,
         chunk_min_bytes=0.0, mirror=mirror))(jnp.asarray(pos))
     _assert_mirror_close(e_m, g_m, float(e_j), np.asarray(g_j), n_real)
+    e_r, g_r = _reference_recip(pos, q, box, mirror)
+    _assert_mirror_close(e_m, g_m, e_r, g_r, n_real)
+    assert np.abs(g_r[n_real:]).max() == 0.0
+    # in float64 the closed form is the autograd gradient to rounding, and
+    # its backward scales with the incoming gradient
+    e_c, g_c = _port_recip(pos, q, box, mirror, chunk, torch.float64, -3.0)
+    np.testing.assert_allclose(e_c, e_r, rtol=1e-12)
+    np.testing.assert_allclose(g_c, -3.0 * g_r, rtol=1e-9,
+                               atol=1e-12 * np.abs(g_r).max())
+    assert np.abs(g_c[n_real:]).max() == 0.0
+    assert tewald.reciprocal_energy.calls == calls + 3
+    assert tewald.reciprocal_energy.chunked_calls == chunks + 3 * (chunk > 0)
 
 
 def _mirror_layout(kind, rng):

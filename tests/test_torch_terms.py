@@ -89,26 +89,83 @@ def _rich_system(builder_cls, n_mol=6, seed=2):
     return b.finalize(box, r_cutoff=1.0, use_pme=True), np.array(pos), box
 
 
-@pytest.mark.parametrize("chunked", [False, True])
-def test_reciprocal_energy_and_forces(chunked):
+@pytest.mark.parametrize("chunked, box", [
+    pytest.param(False, (2.5, 2.7, 2.6), id="False"),
+    pytest.param(True, (2.5, 2.7, 2.6), id="True"),
+    pytest.param(False, (2.6, 2.6, 2.6), id="False-cubic"),
+    pytest.param(True, (2.6, 2.6, 2.6), id="True-cubic")])
+def test_reciprocal_energy_and_forces(chunked, box):
+    """The closed-form gradient against JAX's jax.grad and against float64
+    autograd of the same energy (``reciprocal_energy_reference``), through
+    one contraction or forced chunks; the backward scales with the incoming
+    gradient, and the counters count each call and each chunked one."""
     rng = np.random.default_rng(1)
     n = 300
-    box = np.array([2.5, 2.7, 2.6], np.float32)
+    box = np.array(box, np.float32)
     pos = rng.uniform(0, 2.5, (n, 3)).astype(np.float32)
     q = rng.normal(0, 0.5, n).astype(np.float32)
     q -= q.mean()
     beta, kmax = jew.ewald_parameters(0.9, 5e-4, box)
     assert (beta, kmax) == tew.ewald_parameters(0.9, 5e-4, box)
-    kw = dict(chunk=64, chunk_min_bytes=0.0) if chunked else {}
     e_j, g_j = jax.value_and_grad(lambda p: jew.reciprocal_energy(
-        p, jnp.asarray(box), jnp.asarray(q), beta, kmax, **kw))(
+        p, jnp.asarray(box), jnp.asarray(q), beta, kmax,
+        **(dict(chunk=64, chunk_min_bytes=0.0) if chunked else {})))(
         jnp.asarray(pos))
+    calls = tew.reciprocal_energy.calls
+    chunks = tew.reciprocal_energy.chunked_calls
     p = _t(pos).requires_grad_(True)
-    e_t = tew.reciprocal_energy(p, _t(box), _t(q), beta, kmax, **kw)
+    e_t = tew.reciprocal_energy(p, _t(box), _t(q), beta, kmax,
+                                chunk=64 if chunked else 0)
     (g_t,) = torch.autograd.grad(e_t, p)
     np.testing.assert_allclose(float(e_t.detach()), float(e_j), rtol=2e-5)
     np.testing.assert_allclose(g_t.numpy(), np.asarray(g_j), rtol=F_RTOL,
                                atol=F_ATOL)
+    p64 = torch.tensor(pos, dtype=torch.float64, requires_grad=True)
+    e_r = tew.reciprocal_energy_reference(
+        p64, _t(box, torch.float64), _t(q, torch.float64), beta, kmax)
+    (g_r,) = torch.autograd.grad(e_r, p64)
+    np.testing.assert_allclose(float(e_t.detach()), float(e_r.detach()),
+                               rtol=2e-6)
+    np.testing.assert_allclose(g_t.numpy(), g_r.numpy(), rtol=F_RTOL,
+                               atol=2e-6 * float(g_r.abs().max()))
+    # the same algorithm in float64 is the autograd gradient to rounding
+    p64c = p64.detach().clone().requires_grad_(True)
+    e_c = tew.reciprocal_energy(p64c, _t(box, torch.float64),
+                                _t(q, torch.float64), beta, kmax,
+                                chunk=64 if chunked else 0)
+    (g_c,) = torch.autograd.grad(e_c, p64c, grad_outputs=torch.tensor(
+        -2.5, dtype=torch.float64))
+    np.testing.assert_allclose(float(e_c.detach()), float(e_r.detach()),
+                               rtol=1e-12)
+    np.testing.assert_allclose(g_c.numpy(), -2.5 * g_r.numpy(), rtol=1e-9,
+                               atol=1e-12 * float(g_r.abs().max()))
+    assert tew.reciprocal_energy.calls == calls + 2
+    assert tew.reciprocal_energy.chunked_calls == chunks + 2 * chunked
+
+
+@pytest.mark.parametrize("n, kmax, free, chunk", [
+    pytest.param(19_500, (10, 10, 10), 80e9, 0, id="water19k"),
+    pytest.param(14_200, (8, 9, 31), 80e9, 0, id="slab_parents"),
+    pytest.param(19_500, (10, 10, 10), 0.5e9, 14_080, id="crowded")])
+def test_reciprocal_chunk_rule(n, kmax, free, chunk):
+    """The matmul route's atom chunk, by shape arithmetic alone: one
+    contraction while the (n, 2AB) phase block fits FREE_SHARE of the free
+    bytes, else chunks whose block does; a ForceEvaluator fixes it at
+    construction unless it is given one."""
+    block = tew.phase_block_bytes(n, kmax)
+    assert block == n * 2 * (2 * kmax[0] + 1) * (2 * kmax[1] + 1) * 4
+    assert tew.chunk_rows(n, kmax, free) == chunk
+    assert (chunk == 0) == (block <= tew.FREE_SHARE * free)
+    if chunk:
+        assert chunk % 256 == 0
+        assert tew.phase_block_bytes(chunk, kmax) <= tew.FREE_SHARE * free
+        assert tew.phase_block_bytes(chunk + 256, kmax) > tew.FREE_SHARE * free
+    system, _, _ = _rich_system(tpkg.SystemBuilder, 2)
+    ev = tpkg.ForceEvaluator(system, device="cpu")
+    assert ev.ewald_chunk == tew.chunk_rows(
+        system.n_atoms, system.kmax, tew.free_bytes("cpu")) == 0
+    assert tpkg.ForceEvaluator(system, ewald_chunk=chunk,
+                               device="cpu").ewald_chunk == chunk
 
 
 def _both(n_mol=6):
