@@ -39,6 +39,15 @@ matmul reciprocal derives the images' structure factor from the parents'
 evaluation over all atoms.  The JAX package's detection admits parents that
 end before the images begin and never checks the charges (ROADMAP C).
 
+With ``cuda_graph=True`` the middle-scheme step is captured as a CUDA graph
+at the first segment and replayed at every step (``step_graph.py``): the
+host launches a step in one call instead of kernel by kernel.  Each
+segment's fresh pair cache and the State are copied into the graph's
+tensors; a cache of other shapes, or a refitted pair sweep, is captured
+anew.  What a graph cannot hold (host reads inside the step, the
+generator's draws, the barostat, the VV scheme, a mesh) is refused at
+construction, with the reason.
+
 The barostat's attempt reads its accept flag, and the flags of the two
 energy lists, on the host in one read (counted in ``host_syncs``); an
 accepted move rebuilds the pair cache, drops the VV force carry and zeroes
@@ -78,6 +87,7 @@ from .integrators import stepping
 from .integrators.vv import IntegratorData, VVIntegrator
 from .ops import constraints as cons_mod
 from .parallel.mesh import shard_carry, sharded_step
+from . import step_graph
 from .system import State, System, make_state, pad_system, resolve_device
 from . import trace
 from .units import BOLTZ
@@ -109,9 +119,11 @@ class Context:
                  sort_refresh: int = 120, pair_ts: int = 0,
                  fold_exc14: bool = False, recip: str = "exact", mesh=None,
                  strict_pairs: bool = False, pair_kernel: str = "plist",
-                 device="cuda"):
+                 cuda_graph: bool = False, device="cuda"):
         """On a mesh the context runs on the mesh's device, which
-        ``device`` must name in kind ("cpu" for a host mesh)."""
+        ``device`` must name in kind ("cpu" for a host mesh).
+        ``cuda_graph`` replays each step from a CUDA graph (module doc);
+        a Context that cannot raises ValueError."""
         with trace.span("context.init"):
             if box is None:
                 raise ValueError("box is required")
@@ -213,6 +225,14 @@ class Context:
             # the barostat's attempts and acceptances since construction
             self.baro_attempts = 0
             self.baro_accepts = 0
+            # the captured step (step_graph.StepGraph), made at the first
+            # segment
+            self.cuda_graph = bool(cuda_graph)
+            self._graph = None
+            if self.cuda_graph:
+                why = step_graph.blocker(self)
+                if why is not None:
+                    raise ValueError(f"cuda_graph: {why}")
             if positions is not None:
                 self.set_positions(positions)
             self._sync()
@@ -388,9 +408,12 @@ class Context:
         n = int(n)
         done = 0
         baro = self.barostat
+        graph = None
         while done < n:
             with trace.span("loop.segment"):
                 cache = self._fresh_cache() if cached else None
+                if self.cuda_graph:
+                    graph = self._step_graph(cache)
                 lim = min(done + self.sort_refresh, n)
                 while done < lim:
                     if baro is not None \
@@ -398,7 +421,8 @@ class Context:
                             and self._barostat_attempt() and cached:
                         cache = self._fresh_cache()
                     with trace.span("step", self.state.step):
-                        cov = one_step(cache)
+                        cov = (one_step(cache) if graph is None
+                               else graph.replay(self))
                     done += 1
                     if cached:
                         # a sweep with host_flag has read the flag already,
@@ -406,9 +430,22 @@ class Context:
                         self.host_syncs += 1
                         with trace.span("loop.flag_read"):
                             tripped = bool(cov)
-                        if tripped:
-                            self.coverage_rebuilds += 1
-                            break
+                    if graph is not None:
+                        graph.timed()
+                    if cached and tripped:
+                        self.coverage_rebuilds += 1
+                        break
+        if graph is not None:
+            graph.release(self)
+
+    def _step_graph(self, cache):
+        """The captured step, loaded with the State and ``cache``; captured
+        anew where the last capture does not fit them."""
+        if self._graph is None or not self._graph.fits(self, cache):
+            self._graph = None
+            self._graph = step_graph.StepGraph(self, cache)
+        self._graph.load(self, cache)
+        return self._graph
 
     def _barostat_draws(self):
         return baro_mod.draw(self.barostat.kind, self.state.generator,

@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from ..units import ONE_4PI_EPS0
 
 _EPS = 1e-12
@@ -47,24 +48,29 @@ def _bond_ef(delta, prm, _unused=None):
 
 
 def _angle_ef(delta, prm, _unused=None):
+    """E = k (theta - theta0)^2 / 2.  theta = atan2(|a x b|, a.b) and its
+    gradient dtheta/da = -(n x a) / (|n| |a|^2), dtheta/db = -(b x n) /
+    (|n| |b|^2), n = a x b: sin(theta) from the cross product keeps float32
+    accuracy near a linear angle (a dicyanamide's N-C-N at 175-180 deg),
+    where 1 - cos^2 from a rounded cosine loses it."""
     th0, k = prm[:, 0], prm[:, 1]
     ax, ay, az = delta(0, 1)   # v1 = p0 - p1
     bx, by, bz = delta(2, 1)   # v2 = p2 - p1
-    r1s = ax * ax + ay * ay + az * az + _EPS
-    r2s = bx * bx + by * by + bz * bz + _EPS
-    inv1 = torch.rsqrt(r1s)
-    inv2 = torch.rsqrt(r2s)
+    nx = ay * bz - az * by
+    ny = az * bx - ax * bz
+    nz = ax * by - ay * bx
+    s = torch.sqrt(nx * nx + ny * ny + nz * nz + _EPS * _EPS)
     dot = ax * bx + ay * by + az * bz
-    cos_t = torch.clamp(dot * inv1 * inv2, -1.0 + 1e-7, 1.0 - 1e-7)
-    theta = torch.arccos(cos_t)
+    theta = torch.atan2(s, dot)
     e = 0.5 * k * (theta - th0) ** 2
-    # dE/dcos = -k(theta-th0)/sin(theta)
-    c = -k * (theta - th0) * torch.rsqrt(1.0 - cos_t * cos_t)
-    c1 = c * inv1 * inv2
-    ca = c * cos_t * inv1 * inv1
-    cb = c * cos_t * inv2 * inv2
-    g0 = (c1 * bx - ca * ax, c1 * by - ca * ay, c1 * bz - ca * az)
-    g2 = (c1 * ax - cb * bx, c1 * ay - cb * by, c1 * az - cb * bz)
+    c = -k * (theta - th0) / s
+    ca = c / (ax * ax + ay * ay + az * az + _EPS)
+    cb = c / (bx * bx + by * by + bz * bz + _EPS)
+    # n x a and b x n
+    g0 = (ca * (ny * az - nz * ay), ca * (nz * ax - nx * az),
+          ca * (nx * ay - ny * ax))
+    g2 = (cb * (by * nz - bz * ny), cb * (bz * nx - bx * nz),
+          cb * (bx * ny - by * nx))
     g1 = (-(g0[0] + g2[0]), -(g0[1] + g2[1]), -(g0[2] + g2[2]))
     return e, [g0, g1, g2]
 
@@ -76,45 +82,46 @@ def _dihedral_ef(delta, prm, _unused=None):
     (dphi/dp0 = -|b2|/|m|^2 m, dphi/dp3 = |b2|/|n|^2 n, middle atoms by
     lever rule) — equivalent to autodiff of ops/bonded.py:_dihedral_phi.
     """
-    nmul, phase, k = prm[:, 0], prm[:, 1], prm[:, 2]
-    b1x, b1y, b1z = delta(1, 0)
-    b2x, b2y, b2z = delta(2, 1)
-    b3x, b3y, b3z = delta(3, 2)
-    # m = b1 x b2 ; n = b2 x b3
-    mx = b1y * b2z - b1z * b2y
-    my = b1z * b2x - b1x * b2z
-    mz = b1x * b2y - b1y * b2x
-    nx = b2y * b3z - b2z * b3y
-    ny = b2z * b3x - b2x * b3z
-    nz = b2x * b3y - b2y * b3x
-    b2s = b2x * b2x + b2y * b2y + b2z * b2z + _EPS
-    inv_b2 = torch.rsqrt(b2s)
-    b2n = b2s * inv_b2
-    # phi = atan2((m x b2hat).n, m.n)
-    cxx = my * b2z - mz * b2y
-    cxy = mz * b2x - mx * b2z
-    cxz = mx * b2y - my * b2x
-    yv = (cxx * nx + cxy * ny + cxz * nz) * inv_b2
-    xv = mx * nx + my * ny + mz * nz
-    phi = torch.atan2(yv, xv + _EPS * (xv == 0))
-    arg = nmul * phi - phase
-    e = k * (1.0 + torch.cos(arg))
-    dedphi = -k * nmul * torch.sin(arg)
-    m2 = mx * mx + my * my + mz * mz + _EPS
-    n2 = nx * nx + ny * ny + nz * nz + _EPS
-    ca = dedphi * b2n / m2           # dE/dp0 = ca * m
-    cd = -dedphi * b2n / n2          # dE/dp3 = cd * n
-    s = (b1x * b2x + b1y * b2y + b1z * b2z) / b2s
-    t = (b3x * b2x + b3y * b2y + b3z * b2z) / b2s
-    g0 = (ca * mx, ca * my, ca * mz)
-    g3 = (cd * nx, cd * ny, cd * nz)
-    g1 = (t * g3[0] - (1.0 + s) * g0[0],
-          t * g3[1] - (1.0 + s) * g0[1],
-          t * g3[2] - (1.0 + s) * g0[2])
-    g2 = (s * g0[0] - (1.0 + t) * g3[0],
-          s * g0[1] - (1.0 + t) * g3[1],
-          s * g0[2] - (1.0 + t) * g3[2])
-    return e, [g0, g1, g2, g3]
+    with trace.span("terms.dihedral"):
+        nmul, phase, k = prm[:, 0], prm[:, 1], prm[:, 2]
+        b1x, b1y, b1z = delta(1, 0)
+        b2x, b2y, b2z = delta(2, 1)
+        b3x, b3y, b3z = delta(3, 2)
+        # m = b1 x b2 ; n = b2 x b3
+        mx = b1y * b2z - b1z * b2y
+        my = b1z * b2x - b1x * b2z
+        mz = b1x * b2y - b1y * b2x
+        nx = b2y * b3z - b2z * b3y
+        ny = b2z * b3x - b2x * b3z
+        nz = b2x * b3y - b2y * b3x
+        b2s = b2x * b2x + b2y * b2y + b2z * b2z + _EPS
+        inv_b2 = torch.rsqrt(b2s)
+        b2n = b2s * inv_b2
+        # phi = atan2((m x b2hat).n, m.n)
+        cxx = my * b2z - mz * b2y
+        cxy = mz * b2x - mx * b2z
+        cxz = mx * b2y - my * b2x
+        yv = (cxx * nx + cxy * ny + cxz * nz) * inv_b2
+        xv = mx * nx + my * ny + mz * nz
+        phi = torch.atan2(yv, xv + _EPS * (xv == 0))
+        arg = nmul * phi - phase
+        e = k * (1.0 + torch.cos(arg))
+        dedphi = -k * nmul * torch.sin(arg)
+        m2 = mx * mx + my * my + mz * mz + _EPS
+        n2 = nx * nx + ny * ny + nz * nz + _EPS
+        ca = dedphi * b2n / m2           # dE/dp0 = ca * m
+        cd = -dedphi * b2n / n2          # dE/dp3 = cd * n
+        s = (b1x * b2x + b1y * b2y + b1z * b2z) / b2s
+        t = (b3x * b2x + b3y * b2y + b3z * b2z) / b2s
+        g0 = (ca * mx, ca * my, ca * mz)
+        g3 = (cd * nx, cd * ny, cd * nz)
+        g1 = (t * g3[0] - (1.0 + s) * g0[0],
+              t * g3[1] - (1.0 + s) * g0[1],
+              t * g3[2] - (1.0 + s) * g0[2])
+        g2 = (s * g0[0] - (1.0 + t) * g3[0],
+              s * g0[1] - (1.0 + t) * g3[1],
+              s * g0[2] - (1.0 + t) * g3[2])
+        return e, [g0, g1, g2, g3]
 
 
 def _drude_ef(delta, prm, _unused=None):
@@ -164,49 +171,52 @@ def _drude_ef(delta, prm, _unused=None):
 def _thole_ef(delta, prm, _unused=None):
     """Thole screened dipole-dipole: 4 site pairs between (d1,p1) and
     (d2,p2); prm = (qq, screen).  E = C qq/r (1 - (1+u/2) e^-u), u = a r."""
-    qq, screen = prm[:, 0], prm[:, 1]
-    grads = [[torch.zeros_like(qq) for _ in range(3)] for _ in range(4)]
-    e = torch.zeros_like(qq)
+    with trace.span("terms.thole"):
+        qq, screen = prm[:, 0], prm[:, 1]
+        grads = [[torch.zeros_like(qq) for _ in range(3)] for _ in range(4)]
+        e = torch.zeros_like(qq)
 
-    for a, b, sign in ((0, 2, 1.0), (0, 3, -1.0), (1, 2, -1.0), (1, 3, 1.0)):
-        dx, dy, dz = delta(a, b)
-        r2 = dx * dx + dy * dy + dz * dz + _EPS
-        inv_r = torch.rsqrt(r2)
-        u = screen * r2 * inv_r
-        ex = torch.exp(-u)
-        s = 1.0 - (1.0 + 0.5 * u) * ex
-        sp = 0.5 * (1.0 + u) * ex
-        pref = ONE_4PI_EPS0 * sign * qq
-        e = e + pref * s * inv_r
-        # dE/dr = pref*(sp*screen/r - s/r^2); coef = dE/dr / r
-        coef = pref * (sp * screen - s * inv_r) * inv_r * inv_r
-        grads[a][0] = grads[a][0] + coef * dx
-        grads[a][1] = grads[a][1] + coef * dy
-        grads[a][2] = grads[a][2] + coef * dz
-        grads[b][0] = grads[b][0] - coef * dx
-        grads[b][1] = grads[b][1] - coef * dy
-        grads[b][2] = grads[b][2] - coef * dz
-    return e, [tuple(g) for g in grads]
+        for a, b, sign in ((0, 2, 1.0), (0, 3, -1.0), (1, 2, -1.0),
+                           (1, 3, 1.0)):
+            dx, dy, dz = delta(a, b)
+            r2 = dx * dx + dy * dy + dz * dz + _EPS
+            inv_r = torch.rsqrt(r2)
+            u = screen * r2 * inv_r
+            ex = torch.exp(-u)
+            s = 1.0 - (1.0 + 0.5 * u) * ex
+            sp = 0.5 * (1.0 + u) * ex
+            pref = ONE_4PI_EPS0 * sign * qq
+            e = e + pref * s * inv_r
+            # dE/dr = pref*(sp*screen/r - s/r^2); coef = dE/dr / r
+            coef = pref * (sp * screen - s * inv_r) * inv_r * inv_r
+            grads[a][0] = grads[a][0] + coef * dx
+            grads[a][1] = grads[a][1] + coef * dy
+            grads[a][2] = grads[a][2] + coef * dz
+            grads[b][0] = grads[b][0] - coef * dx
+            grads[b][1] = grads[b][1] - coef * dy
+            grads[b][2] = grads[b][2] - coef * dz
+        return e, [tuple(g) for g in grads]
 
 
 def _exception_ef(delta, prm, _unused=None):
     """1-4 exception: full scaled Coulomb + LJ in one pass.
     prm: (qq, c6, c12); returns ((coul, lj) energy split, grads)."""
-    qq, c6, c12 = prm[:, 0], prm[:, 1], prm[:, 2]
-    dx, dy, dz = delta(0, 1)
-    r2 = dx * dx + dy * dy + dz * dz + _EPS
-    inv_r2 = 1.0 / r2
-    inv_r = torch.rsqrt(r2)
-    inv_r6 = inv_r2 * inv_r2 * inv_r2
-    e_coul = qq * inv_r
-    e12 = c12 * inv_r6 * inv_r6
-    e6 = c6 * inv_r6
-    e_lj = e12 - e6
-    # coef = (dE/dr)/r
-    coef = (-e_coul - 12.0 * e12 + 6.0 * e6) * inv_r2
-    g0 = (coef * dx, coef * dy, coef * dz)
-    g1 = (-g0[0], -g0[1], -g0[2])
-    return (e_coul, e_lj), [g0, g1]
+    with trace.span("terms.exception"):
+        qq, c6, c12 = prm[:, 0], prm[:, 1], prm[:, 2]
+        dx, dy, dz = delta(0, 1)
+        r2 = dx * dx + dy * dy + dz * dz + _EPS
+        inv_r2 = 1.0 / r2
+        inv_r = torch.rsqrt(r2)
+        inv_r6 = inv_r2 * inv_r2 * inv_r2
+        e_coul = qq * inv_r
+        e12 = c12 * inv_r6 * inv_r6
+        e6 = c6 * inv_r6
+        e_lj = e12 - e6
+        # coef = (dE/dr)/r
+        coef = (-e_coul - 12.0 * e12 + 6.0 * e6) * inv_r2
+        g0 = (coef * dx, coef * dy, coef * dz)
+        g1 = (-g0[0], -g0[1], -g0[2])
+        return (e_coul, e_lj), [g0, g1]
 
 
 _TERM_FNS = {

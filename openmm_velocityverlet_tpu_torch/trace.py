@@ -23,9 +23,18 @@ A span does one of two things, chosen when it opens:
 
 Every span's name is ``<layer>.<stage>`` (the step itself is ``step``) and
 is listed once, in ``SPANS``, with its layer.
+
+A step replayed from a CUDA graph (``Context(cuda_graph=True)``) runs no
+host code inside, so its spans cannot read the host's clock.  While the
+step is captured (``graph_capture()``) a span records a pair of CUDA
+events into the graph instead; after each replay has finished,
+``add_replay(events)`` adds each span one call and the device time between
+its two events.  Such a span counts the device's time, not the host's:
+in a replayed step the host spends none there.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import NamedTuple
 
@@ -46,6 +55,9 @@ SPANS = {
     "forces.pairs": "pair sweep",           # the direct-space sweep
     "forces.smooth": "reciprocal",          # autograd terms, forward + grad
     "forces.terms": "bonded and molecule terms",
+    "terms.dihedral": "bonded and molecule terms",   # torsions, impropers
+    "terms.thole": "bonded and molecule terms",      # screened dipole pairs
+    "terms.exception": "bonded and molecule terms",  # 1-4 exceptions
     "forces.external": "externals",         # closures with their own force
     "recip.mirror": "reciprocal",           # the mirror route, E and grad
     "step.rattle": "constraints",           # each velocity projection
@@ -85,10 +97,53 @@ def totals() -> dict:
             for name, (c, t, f) in _table.items()}
 
 
+# while a step is captured into a CUDA graph: its spans' (row, start event,
+# end event), in the order they closed, and the maker of a timing event
+_capture = None
+_event = None
+
+
+def _cuda_event():
+    """A timing event that a graph capture records as a node of its own."""
+    return torch.cuda.Event(enable_timing=True, external=True)
+
+
+@contextlib.contextmanager
+def graph_capture(event=_cuda_event):
+    """``with graph_capture() as events:`` around the capture of a CUDA
+    graph: every span opened inside records ``event()`` at its start and
+    end into the graph, and ``events`` collects (row, start, end) for
+    ``add_replay``."""
+    global _capture, _event
+    events = []
+    _capture, _event = events, event
+    try:
+        yield events
+    finally:
+        _capture, _event = None, None
+
+
+def add_replay(events):
+    """One replay of a captured graph, finished: each span of ``events``
+    gets one call of its events' device time.  While a profiler records,
+    the table is left as it is, as for a span run on the host."""
+    if torch.autograd._profiler_enabled():
+        return
+    for row, start, end in events:
+        _add(row, int(start.elapsed_time(end) * 1e6))
+
+
+def _add(row, ns):
+    if not row[0]:
+        row[2] = ns
+    row[0] += 1
+    row[1] += ns
+
+
 class span:
     """``with span(name[, step]):`` -- see the module doc.  ``name`` must
     be a key of ``SPANS``."""
-    __slots__ = ("row", "name", "step", "t0", "rf")
+    __slots__ = ("row", "name", "step", "t0", "rf", "ev")
 
     def __init__(self, name: str, step: int | None = None):
         self.row = _table[name]
@@ -96,7 +151,12 @@ class span:
         self.step = step
 
     def __enter__(self):
-        if torch.autograd._profiler_enabled():
+        self.ev = None
+        if _capture is not None:
+            self.rf = None
+            self.ev = _event()
+            self.ev.record()
+        elif torch.autograd._profiler_enabled():
             self.rf = (_RecordFunctionFast(self.name) if self.step is None
                        else _RecordFunctionFast(self.name, (),
                                                 {"step": self.step}))
@@ -107,13 +167,13 @@ class span:
         return self
 
     def __exit__(self, *exc):
+        if self.ev is not None:
+            end = _event()
+            end.record()
+            _capture.append((self.row, self.ev, end))
+            return False
         if self.rf is not None:
             self.rf.__exit__(*exc)
             return False
-        dt = time.perf_counter_ns() - self.t0
-        row = self.row
-        if not row[0]:
-            row[2] = dt
-        row[0] += 1
-        row[1] += dt
+        _add(self.row, time.perf_counter_ns() - self.t0)
         return False
